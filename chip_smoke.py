@@ -6,14 +6,17 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nadavca_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, drives the port's main path
-(reads → banded Viterbi → fixed-path rescore → SNP calls) through the public
-``api`` at a realistic batch size, checks the result, and prints one JSON line
-per phase. The last line is ``{"ok": true, "device": {...}}``; any failure
-raises and the exit code is not 0. Without a CUDA device it exits with code 2
-and prints no result. ``--small`` cuts every size (for a quick look, not for numbers), ``--profile``
-adds a ``torch.profiler`` trace of one ``call_snps`` run (device time by
-kernel, the card's idle share).
+against its plain PyTorch version on the card, drives the port's main path —
+the default configuration: reads → banded Viterbi → local re-DP rescore with
+genome tables → SNP calls — through the public ``api`` at a realistic batch
+size, checks the result, and prints one JSON line per phase. Two further paths
+run at a smaller depth: ``snp_rescore="fixed"`` (the closed-form rescore) and
+the local rescore without genome tables. The last line is
+``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
+0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
+cuts every size (for a quick look, not for numbers), ``--profile`` adds a
+``torch.profiler`` trace of one ``call_snps`` run (device time by kernel, the
+card's idle share).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from nadavca_tpu_torch import api, call as callmod, pipeline
 from nadavca_tpu_torch.genome import Contig, Genome
 from nadavca_tpu_torch.io import fast5 as fast5mod
 from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
-from nadavca_tpu_torch.ops import banded_dp, cuda_dp
+from nadavca_tpu_torch.ops import banded_dp, cuda_dp, cuda_rescore
+from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
 from nadavca_tpu_torch.utils import kernel_build
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the
@@ -51,7 +55,43 @@ KERNEL_INFO = {
     "backtrack": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/backtrack.cu",
         replaces="nadavca_tpu/ops/pallas_dp.py:676"),
+    "path_counts": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/path_counts.cu",
+        replaces="nadavca_tpu/ops/pallas_rescore.py:35"),
+    "shear_gather": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/shear_gather.cu",
+        replaces="nadavca_tpu/ops/pallas_rescore.py:627"),
+    "rescore_fill_tab": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/rescore.cu",
+        replaces="nadavca_tpu/ops/pallas_rescore.py:218"),
+    "rescore_fill": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/rescore.cu",
+        replaces="nadavca_tpu/ops/pallas_rescore.py:191"),
 }
+# the __global__ function behind each wrapper, as the profiler names it
+DEVICE_FUNCTION = {
+    "band_gather": "band_gather_kernel", "viterbi_fill": "viterbi_fill_kernel",
+    "backtrack": "backtrack_kernel", "path_counts": "path_counts_kernel",
+    "shear_gather": "shear_gather_kernel", "rescore_fill_tab": "rescore_tab_kernel",
+    "rescore_fill": "rescore_kernel<",
+}
+ALL_KERNELS = cuda_dp.KERNELS + cuda_rescore.KERNELS
+# kernel against plain version in the rescore: the same float32 operations in
+# the same order (no fused multiply-add on either side), so the difference is
+# expected to be 0; the bound leaves room for a last-bit difference per step
+RESCORE_ATOL, RESCORE_RTOL = 1e-3, 1e-5
+# share of the planted SNPs the default caller must find on the smoke world
+# (information beyond that: recall and precision are printed)
+MIN_RECALL = 0.5
+
+
+def reset_launches() -> None:
+    cuda_dp.reset_launches()
+    cuda_rescore.reset_launches()
+
+
+def read_launches() -> dict:
+    return {k.__name__: k.launches for k in ALL_KERNELS}
 
 
 def emit(obj) -> None:
@@ -113,9 +153,10 @@ def records_of(reads, reference, model, cfg):
 
 
 # ---------------------------------------------------------- phase 3: kernels
-def staged_batch(records, model, cfg):
+def staged_batch(records, model, cfg, subst=None):
     batch = pipeline.assemble_batch(records, model, cfg)
-    return batch, pipeline.stage_batch(batch, model, cfg, "cuda", device="cuda")
+    return batch, pipeline.stage_batch(batch, model, cfg, "cuda", device="cuda",
+                                       subst=subst)
 
 
 def check_kernels(tag: str, batch, a, cfg, reps: int):
@@ -211,6 +252,173 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
     return out
 
 
+def bound(nbytes: int, ops: int) -> dict:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=nbytes, operations=ops)
+
+
+def timed(fn):
+    """(result, milliseconds) of one call ending in a synchronise."""
+    box = {}
+    ms = wall_ms(lambda: box.update(out=fn()))
+    return box["out"], ms
+
+
+def live_close(tag, got, want):
+    """Largest difference over live values; dead slots (~-1e30 on both sides)
+    must be dead on both."""
+    live = want.abs() < 1e20
+    assert bool((live == (got.abs() < 1e20)).all()), f"{tag}: dead slots differ"
+    diff = ((got - want).abs() * live)
+    tol = RESCORE_ATOL + RESCORE_RTOL * (want.abs() * live)
+    assert bool((diff <= tol).all()), (
+        f"{tag}: differs from its plain version by {float(diff.max())}")
+    return float(diff.max())
+
+
+def check_rescore_kernels(tag: str, batch, a, path, cfg, tables, reps: int):
+    """K3-K6 against their plain versions on the card at this batch's shapes,
+    on the path the card's backtrack gave. Returns {kernel name: numbers}."""
+    R, T = batch.x.shape
+    L = batch.codes.shape[1]
+    N = batch.ids.shape[1]
+    k, t_w = cfg.k, cfg.snp_local_window
+    x, t_len, codes = a["x"], a["t_len"], a["codes"]
+    out = {}
+
+    # --- K3 path counts: integer work, equal
+    Np = -(-(N + 1) // 128) * 128
+    tmask = torch.arange(T, device="cuda")[None, :] < t_len[:, None]
+    path_safe = torch.where(tmask, path, torch.full_like(path, Np))
+    cnt = cuda_rescore.path_counts(path_safe, Np, t_len)
+    sync()
+    p_cnt, plain_ms = timed(lambda: cuda_rescore.path_counts_plain(path_safe, Np, t_len))
+    n_diff = int((cnt != p_cnt).sum())
+    assert n_diff == 0, f"{tag}: path_counts: {n_diff} counts differ"
+    lanes = torch.arange(Np, dtype=torch.int32, device="cuda")[None, :].expand(R, Np).contiguous()
+    out["path_counts"] = dict(
+        max_abs_err=0.0,
+        ms=event_ms(lambda: cuda_rescore.path_counts(path_safe, Np, t_len), reps),
+        plain_ms=plain_ms,
+        # yardstick: torch.searchsorted on the prebuilt sentinel path and lanes
+        library_ms=event_ms(lambda: torch.searchsorted(path_safe, lanes), reps),
+        **bound(R * T * 4 + R * 4 + R * Np * 4, 0))
+
+    # --- K4 shear gather: a gather computes nothing, so exact
+    S, W, kk, p_lo, _ = cuda_rescore.local_windows(path, t_len, codes, N, k, t_w)
+    S_c = S.clamp(0, T - 1).contiguous()
+    slab = T >= cuda_rescore.SPAN + 256
+    xs = cuda_rescore.shear_gather(x, S_c, t_w, slab=slab)
+    sync()
+    p_xs, plain_ms = timed(lambda: cuda_rescore.shear_gather_plain(x, S_c, t_w, slab=slab))
+    assert torch.equal(xs, p_xs), f"{tag}: shear_gather differs from its plain version"
+    del p_xs
+    idx = (S_c.long()[:, :, None] + torch.arange(t_w, device="cuda")).clamp(0, T - 1)
+    idx = idx.reshape(R, L * t_w)
+    out["shear_gather"] = dict(
+        max_abs_err=0.0,
+        ms=event_ms(lambda: cuda_rescore.shear_gather(x, S_c, t_w, slab=slab), reps),
+        plain_ms=plain_ms,
+        # yardstick: torch.gather with the prebuilt (R, L*t_w) index, plus the
+        # transpose to (t_w, R, L)
+        library_ms=event_ms(lambda: torch.gather(x, 1, idx).reshape(R, L, t_w)
+                            .permute(2, 0, 1).contiguous(), 3, 1),
+        **bound(t_w * R * L * 4 + R * T * 4 + R * L * 4 + R * (L // 128) * 4, 0))
+    del idx
+    if slab:
+        # a synthetic S in which every odd read's tiles spread beyond the slab:
+        # the 0.0 contract, which simulated reads hardly ever trip
+        S_syn = S_c.clone()
+        ramp = (torch.arange(L, device="cuda", dtype=torch.int32) * 40).clamp(max=T - 1)
+        S_syn[1::2] = ramp
+        got = cuda_rescore.shear_gather(x, S_syn, t_w)
+        want = cuda_rescore.shear_gather_plain(x, S_syn, t_w)
+        assert torch.equal(got, want), f"{tag}: shear_gather differs on broken tiles"
+        zero_share = float((want == 0).all(dim=0).float().mean())
+        assert 0.0 < zero_share < 1.0, zero_share
+        out["shear_gather"]["broken_tile_zero_share"] = zero_share
+        del got, want
+
+    # --- K5 / K6: the same operations in the same order
+    if slab:
+        W = torch.where(cuda_rescore.span_ok(S_c, T), W, torch.zeros_like(W))
+    W, kk = W.contiguous(), kk.contiguous()
+    ref = codes.clamp(0, 3)
+    w_sum = int(W.sum())
+    xs_bytes = int(W.clamp(min=1).sum()) * 4       # step 0 is always read
+    ops = 8 * 4 * k * w_sum
+
+    tab_args = (xs, W, kk, ref, a["woff"], tables.tab, cfg, t_w)
+    got = cuda_rescore.rescore_fill_tab(*tab_args)
+    sync()
+    want, plain_ms = timed(lambda: cuda_rescore.rescore_fill_tab_plain(*tab_args))
+    err = live_close(f"{tag}: rescore_fill_tab", got, want)
+    out["rescore_fill_tab"] = dict(
+        max_abs_err=err,
+        ms=event_ms(lambda: cuda_rescore.rescore_fill_tab(*tab_args), reps),
+        plain_ms=plain_ms, library_ms=None,
+        **bound(xs_bytes + R * L * (3 * 4 * k * 4 + 3 * 4 + 4 * 4) + R * 4, ops),
+        live_samples=w_sum, mean_window=w_sum / max(int((W > 0).sum()), 1),
+        max_window=int(W.max()))
+    del got, want
+
+    em, mu, iv, _ = cuda_rescore.batch_constants(p_lo, kk, codes, a["ids"],
+                                                 a["lm"], a["ls"], k)
+    arr_args = (xs, em, mu, iv, W, kk, ref, cfg, t_w)
+    got = cuda_rescore.rescore_fill(*arr_args)
+    sync()
+    want, plain_ms = timed(lambda: cuda_rescore.rescore_fill_plain(*arr_args))
+    err = live_close(f"{tag}: rescore_fill", got, want)
+    out["rescore_fill"] = dict(
+        max_abs_err=err,
+        ms=event_ms(lambda: cuda_rescore.rescore_fill(*arr_args), reps),
+        plain_ms=plain_ms, library_ms=None,
+        **bound(xs_bytes + R * L * (3 * 4 * k * 4 + 3 * 4 + 4 * 4), ops),
+        live_samples=w_sum)
+    return out
+
+
+def check_span_mask() -> dict:
+    """``base_loglik_local_cuda`` on a crafted batch in which two reads dwell
+    long enough for a 128-position tile to spread over more than 2048 samples:
+    the card masks exactly the positions the plain versions mask."""
+    rng = np.random.default_rng(9)
+    model = nt.default_model()
+    cfg = nt.AlignConfig()
+    k, R, L, T, t_w = model.k, 8, 256, 2560, 96
+    N = L - k + 1
+    codes = rng.integers(0, 4, (R, L)).astype(np.int32)
+    ids = np.stack([nt.kmer_ids(c.astype(np.int8), k) for c in codes]).astype(np.int32)
+    path = np.zeros((R, T), np.int32)
+    t_len = np.zeros(R, np.int32)
+    for r in range(R):
+        dwell = rng.integers(4, 12, N)
+        if r in (0, 5):
+            dwell[30:50] = 100
+        p = np.repeat(np.arange(N), dwell)[:T]
+        t_len[r] = len(p)
+        path[r, :len(p)] = p
+        path[r, len(p):] = p[-1]
+    arrs = [rng.normal(size=(R, T)).astype(np.float32), path, t_len, codes, ids,
+            model.level_mean.astype(np.float32), model.level_std.astype(np.float32)]
+    on = lambda dev: cuda_rescore.base_loglik_local_cuda(
+        *(torch.from_numpy(v).to(dev) for v in arrs), k, cfg, t_w=t_w)
+    before = cuda_rescore.rescore_fill.launches
+    got, want = on("cuda").cpu(), on("cpu")
+    assert cuda_rescore.rescore_fill.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=RESCORE_RTOL, atol=RESCORE_ATOL)
+    short = lambda dev: cuda_rescore.base_loglik_local_cuda(
+        *(torch.from_numpy(np.ascontiguousarray(v[:, :2303]) if v.shape == (R, T)
+                           else np.minimum(v, 2303) if v is t_len else v).to(dev)
+          for v in arrs), k, cfg, t_w=t_w)
+    unmasked = short("cuda").cpu()
+    masked = (got == 0).all(2) & (unmasked != 0).any(2)
+    assert masked[0].any() and masked[5].any() and not masked[1].any()
+    return {"span_masked_positions": int(masked.sum())}
+
+
 def check_argmax_tie() -> None:
     """The final slot is the FIRST maximum, as ``jnp.argmax`` gives it."""
     v = torch.full((4, 256), -3.0, device="cuda")
@@ -279,8 +487,8 @@ def run_api(reference, raws, fast5_dir, cfg, model, device, batch_reads):
     return calls, alns, t1 - t0, t2 - t1
 
 
-def stage_split(records, reference, raws, model, cfg, batch_reads):
-    """Milliseconds of each stage of one batch on the card."""
+def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
+    """Milliseconds of each stage of one batch of the default path on the card."""
     group = sorted(records, key=lambda r: len(r.signal))[-batch_reads:]
     ids = {r.read_id for r in group}
     t0 = time.perf_counter()
@@ -293,9 +501,10 @@ def stage_split(records, reference, raws, model, cfg, batch_reads):
     st = {}
     split = {"host_prep": prep_ms, "assemble": assemble_ms}
     split["h2d"] = wall_ms(lambda: st.update(
-        a=pipeline.stage_batch(batch, model, cfg, "cuda", device="cuda")))
+        a=pipeline.stage_batch(batch, model, cfg, "cuda", device="cuda", subst=tables)))
     a = st["a"]
     B, C = cfg.band_width, cfg.signal_chunk
+    k, t_w = cfg.k, cfg.snp_local_window
     split["band_gather"] = wall_ms(lambda: st.update(
         bands=cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)))
     split["viterbi_fill"] = wall_ms(lambda: st.update(fill=cuda_dp.viterbi_fill(
@@ -305,10 +514,30 @@ def stage_split(records, reference, raws, model, cfg, batch_reads):
         v_fin, acc, a["lo"][:, -1], a["n_ref"])))
     split["backtrack"] = wall_ms(lambda: st.update(path=cuda_dp.backtrack(
         dec, a["lo"], a["delta"], st["end"][0], C)))
-    split["rescore"] = wall_ms(lambda: st.update(ll=banded_dp.base_loglik_batch(
-        a["codes"], a["ids"],
-        banded_dp.segment_stats_batch(st["path"], a["x"], a["t_len"], a["mu"].shape[1]),
-        a["lm"], a["ls"], model.k)))
+    path = st["path"]
+    # the local rescore as a whole, then its three kernels on the same inputs;
+    # what is left is the tensor code between them
+    split["rescore_total"] = wall_ms(lambda: st.update(
+        ll=cuda_rescore.base_loglik_local_cuda(
+            a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
+            t_w=t_w, tables=tables, window_off=a["woff"])))
+    T = batch.x.shape[1]
+    N = batch.ids.shape[1]
+    Np = -(-(N + 1) // 128) * 128
+    tmask = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
+    path_safe = torch.where(tmask, path, torch.full_like(path, Np))
+    split["path_counts"] = wall_ms(
+        lambda: cuda_rescore.path_counts(path_safe, Np, a["t_len"]))
+    S, W, kk, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"], N, k, t_w)
+    S_c = S.clamp(0, T - 1).contiguous()
+    split["shear_gather"] = wall_ms(lambda: st.update(
+        xs=cuda_rescore.shear_gather(a["x"], S_c, t_w)))
+    split["rescore"] = wall_ms(lambda: cuda_rescore.rescore_fill_tab(
+        st["xs"], W.contiguous(), kk.contiguous(), a["codes"].clamp(0, 3), a["woff"],
+        tables.tab, cfg, t_w))
+    del st["xs"]
+    split["rescore_glue"] = split["rescore_total"] - sum(
+        split[n] for n in ("path_counts", "shear_gather", "rescore"))
     n = batch.n_reads
     G = len(reference.contigs[0])
     accs = callmod.make_accumulators(G, with_votes=True, device="cuda")
@@ -322,7 +551,7 @@ def stage_split(records, reference, raws, model, cfg, batch_reads):
     callmod.call_snps(acc_g, cov_g, reference.contigs[0].codes,
                       reference.contigs[0].name, cfg, min_coverage=2, votes=votes_g)
     split["call"] = (time.perf_counter() - t0) * 1e3
-    return batch, a, st["path"], split
+    return batch, a, path, st["ll"], split
 
 
 def profile_main_path(reference, raws, cfg, model, batch_reads,
@@ -350,10 +579,31 @@ def profile_main_path(reference, raws, cfg, model, batch_reads,
             "untraced_wall_ms": unprofiled_s * 1e3,
             "device_idle_share": 1.0 - busy_ms / (unprofiled_s * 1e3) if rows else None,
             "port_kernels_device_ms_per_launch": {
-                name: next((ms / c for k, ms, c in rows if k.startswith(name + "_kernel")),
-                           None) for name in KERNEL_INFO},
+                name: next((ms / c for k, ms, c in rows if fn in k), None)
+                for name, fn in DEVICE_FUNCTION.items()},
             "top_device_ms": [{"name": k[:60], "ms": ms, "count": c}
-                              for k, ms, c in rows[:12]]}
+                              for k, ms, c in rows[:16]]}
+
+
+def assert_agree(tag, card, cpu, ll_rtol, ll_atol) -> None:
+    """(calls, alignments) of the same entry points on the card and on the
+    CPU (plain versions): calls equal, segments equal, scores and base
+    log-likelihoods within tolerance."""
+    (calls, alns), (c_calls, c_alns) = card, cpu
+    assert len(alns) == len(c_alns) > 0, (tag, len(alns), len(c_alns))
+    for g, c in zip(alns, c_alns):
+        assert g.read_id == c.read_id
+        assert np.isfinite(g.score) and np.isfinite(g.base_loglik).all()
+        # segments are the path on live samples: equal
+        assert np.array_equal(g.seg_start, c.seg_start), (tag, g.read_id)
+        assert np.array_equal(g.seg_end, c.seg_end), (tag, g.read_id)
+        assert abs(g.score - c.score) <= 2e-3 * max(1.0, abs(c.score)), (tag, g.read_id)
+        np.testing.assert_allclose(g.base_loglik, c.base_loglik, rtol=ll_rtol,
+                                   atol=ll_atol, err_msg=f"{tag}: {g.read_id}")
+    key = lambda c: (c.contig, c.position, c.ref_base, c.alt_base, c.coverage)
+    assert [key(c) for c in calls] == [key(c) for c in c_calls], tag
+    np.testing.assert_allclose([c.probability for c in calls],
+                               [c.probability for c in c_calls], atol=1e-5)
 
 
 def main() -> int:
@@ -369,6 +619,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # ---- phase 1: device
     smi = subprocess.run(
@@ -387,7 +638,9 @@ def main() -> int:
 
     # ---- worlds
     small = args.small
-    cfg = nt.AlignConfig(snp_rescore="fixed")
+    cfg = nt.AlignConfig()                       # the default: snp_rescore="local"
+    assert cfg.snp_rescore == "local"
+    cfg_fixed = nt.AlignConfig(snp_rescore="fixed")
     cfg_wide = nt.AlignConfig(snp_rescore="fixed", band_width=cfg.band_width_long)
     n_reads, read_len, genome_len, batch_reads = (
         (48, 300, 3000, 32) if small else (512, 1000, 25000, 256))
@@ -400,23 +653,32 @@ def main() -> int:
     _, ref_w, reads_w, _ = make_world(args.seed + 1, 6000, 0,
                                       8 if small else 32, 400 if small else 2000)
     _, records_w = records_of(reads_w, ref_w, model, cfg_wide)
+    tables, subst_build_ms = timed(
+        lambda: build_subst_tables(reference, model, device="cuda"))
 
     # ---- phase 3: kernels against their plain versions
     top = sorted(records, key=lambda r: len(r.signal))[-batch_reads:]
-    batch, a = staged_batch(top, model, cfg)
+    batch, a = staged_batch(top, model, cfg, subst=tables)
     main_nums = check_kernels("main", batch, a, cfg, reps=10)
+    res, _ = cuda_dp.cuda_viterbi_batch(a["x"], a["t_len"], a["mu"], a["sigma"],
+                                        a["n_ref"], a["lo"], a["delta"], cfg)
+    main_nums.update(check_rescore_kernels("main", batch, a, res.path, cfg, tables,
+                                           reps=10))
+    del res
     batch_w, a_w = staged_batch(records_w, model, cfg_wide)
     wide_nums = check_kernels("wide", batch_w, a_w, cfg_wide, reps=5)
     check_argmax_tie()
-    emit({"phase": "kernel_checks", "argmax_first_max": True, "shapes": [
+    span = check_span_mask()
+    emit({"phase": "kernel_checks", "argmax_first_max": True, **span, "shapes": [
         {"R": b.x.shape[0], "T": b.x.shape[1], "B": c.band_width, "N": b.mu.shape[1],
-         "kernels": nums}
+         "L": b.codes.shape[1], "t_w": c.snp_local_window, "kernels": nums}
         for b, c, nums in ((batch, cfg, main_nums), (batch_w, cfg_wide, wide_nums))]})
-    del a_w, batch_w
+    del a_w, batch_w, a
     if not small:
         assert batch.x.shape == (256, 11136), batch.x.shape
+        assert batch.codes.shape == (256, 1024), batch.codes.shape
 
-    # ---- phase 4: the main path through the api
+    # ---- phase 4: the main path — the default configuration through the api
     with tempfile.TemporaryDirectory() as tmp:
         fast5_dir = None
         if fast5mod.HAVE_H5PY:
@@ -425,68 +687,146 @@ def main() -> int:
             for i in range(0, len(reads), per):
                 fast5mod.write_fast5(f"{tmp}/reads_{i // per:03d}.fast5", reads[i:i + per])
         n_batches = -(-len(records) // batch_reads)
-        cuda_dp.reset_launches()
+        reset_launches()
         calls, alns, snp_s, aln_s = run_api(reference, raws, fast5_dir, cfg, model,
                                             "cuda", batch_reads)
-        launches = {k.__name__: k.launches for k in cuda_dp.KERNELS}
+        launches = read_launches()
         for name, n in launches.items():
-            assert n == 2 * n_batches, (name, n, n_batches)
-        c_calls, c_alns, _, _ = run_api(reference, raws, fast5_dir, cfg, model,
-                                        "cpu", batch_reads)
-    assert {k.__name__: k.launches for k in cuda_dp.KERNELS} == launches, \
-        "a CPU run must not launch a kernel"
+            want = 0 if name == "rescore_fill" else 2 * n_batches
+            assert n == want, (name, n, want)
+        assert len(alns) >= 0.9 * len(reads), (len(alns), len(reads))
 
-    # the result is right: finite scores, monotone paths, the plain versions on
-    # the CPU agree, and so does the per-step scan twin on the card
-    assert len(alns) == len(c_alns) >= 0.9 * len(reads), (len(alns), len(reads))
-    for g, c in zip(alns, c_alns):
-        assert g.read_id == c.read_id
-        assert np.isfinite(g.score) and np.isfinite(g.base_loglik).all()
-        # segments are the path on live samples: equal
-        assert np.array_equal(g.seg_start, c.seg_start), g.read_id
-        assert np.array_equal(g.seg_end, c.seg_end), g.read_id
-        assert abs(g.score - c.score) <= 2e-3 * max(1.0, abs(c.score)), g.read_id
-        # float32 closed-form terms from statistics summed in float64
-        np.testing.assert_allclose(g.base_loglik, c.base_loglik, rtol=2e-3, atol=5e-3)
-    key = lambda c: (c.contig, c.position, c.ref_base, c.alt_base, c.coverage)
-    assert [key(c) for c in calls] == [key(c) for c in c_calls]
-    np.testing.assert_allclose([c.probability for c in calls],
-                               [c.probability for c in c_calls], atol=1e-5)
+        # the result is right: (a) the same calls on the CPU, where every
+        # wrapper runs its plain version, agree; the plain versions repeat the
+        # kernels' operations in the same order
+        t0 = time.perf_counter()
+        cpu = run_api(reference, raws, fast5_dir, cfg, model, "cpu", batch_reads)[:2]
+        assert read_launches() == launches, "a CPU run must not launch a kernel"
+        assert_agree("local", (calls, alns), cpu, RESCORE_RTOL, RESCORE_ATOL)
+        del cpu
 
-    batch, a, path, split = stage_split(records, reference, raws, model, cfg,
-                                        batch_reads)
+    # the fixed path of the first slice, at a smaller depth: one batch's worth
+    # of reads, in memory, on the card and on the CPU
+    sub = raws[:batch_reads]
+    reset_launches()
+    f_calls, f_alns = run_api(reference, sub, None, cfg_fixed, model, "cuda",
+                              batch_reads)[:2]
+    fixed_launches = read_launches()
+    n_sub = -(-len(f_alns) // batch_reads)
+    for name, n in fixed_launches.items():      # two entry points
+        want = 2 * n_sub if name in ("band_gather", "viterbi_fill", "backtrack") else 0
+        assert n == want, ("fixed", name, n, want)
+    # float32 closed-form terms from statistics summed in float64
+    assert_agree("fixed", (f_calls, f_alns),
+                 run_api(reference, sub, None, cfg_fixed, model, "cpu", batch_reads)[:2],
+                 ll_rtol=2e-3, ll_atol=5e-3)
+    assert read_launches() == fixed_launches, "a CPU run must not launch a kernel"
+    cpu_compare_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    batch, a, path, base_ll, split = stage_split(records, reference, raws, model, cfg,
+                                                 batch_reads, tables)
+    split["subst_build_once_per_genome"] = subst_build_ms
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     n = batch.n_reads
+    T = batch.x.shape[1]
+    L = batch.codes.shape[1]
+    k = cfg.k
     path_np = path.cpu().numpy()
     for r in range(n):
         d = np.diff(path_np[r, : int(batch.t_len[r])])
         assert d.size == 0 or (d.min() >= 0 and d.max() <= 1), (r, d.min(), d.max())
-    scan = pipeline.align_batch(batch, model, cfg, backend="scan", device="cuda")
-    live = torch.arange(batch.x.shape[1], device="cuda")[None, :] < a["t_len"][:, None]
+
+    # (b) the scan twin on the card: its Viterbi differs from the kernels' on
+    # broken ties only, and its local rescore of the kernels' path agrees
+    # with K5 on interior positions (the table path masks read-local edges to
+    # exactly 0, by design)
+    scan = pipeline.align_batch(batch, model, cfg_fixed, backend="scan", device="cuda")
+    live = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
     live[n:] = False
     n_tie = tie_only_differences("scan twin on the card", path, scan["path"], live,
                                  a["mu"], a["sigma"])
+    del scan
+    twin_ll = banded_dp.base_loglik_local_batch(
+        a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
+        t_w=cfg.snp_local_window)
+    first_pos = path[:, 0].long()
+    last_pos = torch.gather(path, 1, (a["t_len"].long() - 1).clamp(min=0)[:, None])[:, 0].long()
+    wlen = torch.from_numpy(batch.window_len.astype(np.int64)).to("cuda")
+    i_idx = torch.arange(L, device="cuda")[None, :]
+    interior = ((i_idx >= (first_pos + k)[:, None])
+                & (i_idx < (torch.minimum(wlen, last_pos) - k)[:, None]))
+    interior[n:] = False
+    # positions the span rule masks are 0 on the kernel side only
+    S, _, _, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"],
+                                               batch.ids.shape[1], k,
+                                               cfg.snp_local_window)
+    S_c = S.clamp(0, T - 1)
+    span_ok = (cuda_rescore.span_ok(S_c, T) if T >= cuda_rescore.SPAN + 256
+               else torch.ones_like(interior))
+    cmp = interior & span_ok
+    assert int(cmp.sum()) > 0.8 * int(wlen[:n].sum()), (int(cmp.sum()), int(wlen[:n].sum()))
+    # table constants are made with numpy's log on the host, the twin's with
+    # torch.log on the card: last-bit differences summed over <= 192 steps
+    torch.testing.assert_close(base_ll[cmp], twin_ll[cmp], rtol=1e-5, atol=1e-3)
+    edge = ~interior & (i_idx < first_pos[:, None] + k - 1)
+    assert bool((base_ll[edge] == 0).all()), "read-local edges must be exactly 0"
+    del twin_ll
+
+    # K6: the local rescore without genome tables, through the pipeline, held
+    # against K5's result on the same positions
+    reset_launches()
+    no_tab = pipeline.align_batch(batch, model, cfg, backend="cuda", device="cuda",
+                                  subst=None)
+    k6_launches = read_launches()
+    assert k6_launches["rescore_fill"] == 1 and k6_launches["rescore_fill_tab"] == 0, \
+        k6_launches
+    assert torch.equal(no_tab["path"], path)
+    torch.testing.assert_close(no_tab["base_loglik"][cmp], base_ll[cmp],
+                               rtol=1e-5, atol=1e-3)
+    k6_max_diff = float((no_tab["base_loglik"][cmp] - base_ll[cmp]).abs().max())
+    del no_tab
 
     called = {c.position: c.alt_base for c in calls}
     tp = sum(1 for p, b in truth.items() if called.get(p) == b)
-    emit({"phase": "main_path", "ingest": "fast5" if fast5_dir else "memory",
+    recall = tp / max(len(truth), 1)
+    f_called = {c.position: c.alt_base for c in f_calls}
+    assert recall >= MIN_RECALL, f"only {tp} of {len(truth)} planted SNPs were called"
+    emit({"phase": "main_path", "config": "AlignConfig() (snp_rescore=local)",
+          "ingest": "fast5" if fast5_dir else "memory",
           "reads": len(reads), "aligned": len(alns), "batches": n_batches,
-          "batch_shape": list(batch.x.shape), "band_width": cfg.band_width,
+          "batch_shape": list(batch.x.shape), "window_shape": list(batch.codes.shape),
+          "band_width": cfg.band_width, "t_w": cfg.snp_local_window,
           "world_seconds": round(world_s, 3),
           "call_snps_seconds": snp_s, "align_signal_seconds": aln_s,
           "reads_per_s_call_snps": len(alns) / snp_s,
           "launches": launches, "stage_ms_one_batch": split,
           "device_ms_one_batch": sum(split[k] for k in (
               "h2d", "band_gather", "viterbi_fill", "final_slot", "backtrack",
-              "rescore", "scatter")),
+              "rescore_total", "scatter")),
+          "peak_device_mb_one_batch": peak_mb,
           "calls": len(calls), "planted": len(truth), "true_positive": tp,
-          "recall": tp / max(len(truth), 1),
-          "precision": tp / max(len(calls), 1),
-          "cpu_plain_agrees": True, "scan_on_card_tie_differences": n_tie,
-          "scan_on_card_live_samples": int(live.sum())})
+          "recall": recall, "precision": tp / max(len(calls), 1),
+          "cpu_plain_agrees_reads": len(alns), "cpu_compare_seconds": cpu_compare_s,
+          "scan_on_card_tie_differences": n_tie,
+          "scan_on_card_live_samples": int(live.sum()),
+          "scan_rescore_interior_positions": int(cmp.sum()),
+          "span_masked_interior_positions": int((interior & ~span_ok).sum())})
+    emit({"phase": "other_paths",
+          "fixed": {"reads": len(sub), "launches": fixed_launches,
+                    "calls": len(f_calls),
+                    "true_positive": sum(1 for p, b in truth.items()
+                                         if f_called.get(p) == b)},
+          "local_without_tables": {"launches": k6_launches,
+                                   "max_abs_diff_vs_tables_interior": k6_max_diff}})
     if args.profile:
         emit({"phase": "profile", **profile_main_path(
             reference, raws, cfg, model, batch_reads, snp_s)})
-    return finish(smi, main_nums, launches)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    # each kernel's count comes from the path that runs it: K6 from the path
+    # without genome tables, every other kernel from the main path
+    return finish(smi, main_nums,
+                  {**launches, "rescore_fill": k6_launches["rescore_fill"]})
 
 
 def finish(smi: str, nums: dict, launches: dict) -> int:

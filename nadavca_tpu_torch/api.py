@@ -26,8 +26,10 @@ from .genome import Genome
 from .io import fast5 as fast5mod
 from .io.fast5 import RawRead
 from .kmer_model import KmerModel, default_model
+from .ops.subst_tables import build_subst_tables
 from .pipeline import (Batch, ReadRecord, align_batch, assemble_batch,
-                       check_supported, make_preprocessor, path_to_segments)
+                       check_supported, make_preprocessor, path_to_segments,
+                       resolve_backend)
 
 
 @dataclasses.dataclass
@@ -124,11 +126,22 @@ def _run_batches(
     backend: str,
     batch_reads: int,
     device,
+    subst=None,
 ) -> Iterator[Tuple[List[ReadRecord], Batch, dict]]:
     for group in _batches(records, batch_reads):
         batch = assemble_batch(group, model, cfg)
-        out = align_batch(batch, model, cfg, backend=backend, device=device)
+        out = align_batch(batch, model, cfg, backend=backend, device=device,
+                          subst=subst)
         yield group, batch, out
+
+
+def _maybe_subst(genome: Genome, model: KmerModel, cfg: AlignConfig,
+                 backend: str, device):
+    """The genome's substitution tables, built once per call, when the kernel
+    backend will run the local rescore; None otherwise."""
+    if resolve_backend(cfg, backend) != "cuda" or cfg.snp_rescore != "local":
+        return None
+    return build_subst_tables(genome, model, device=device)
 
 
 def align_reads(
@@ -148,10 +161,12 @@ def align_reads(
     check_supported(cfg)
     model = model or default_model(cfg.k)
     records = _preprocess(raws, genome, model, cfg, workers, prep=prep)
+    subst = _maybe_subst(genome, model, cfg, backend, device) \
+        if compute_probabilities else None
     order = {r.read_id: i for i, r in enumerate(records)}
     results: List[Optional[ReadAlignment]] = [None] * len(records)
     for group, batch, out in _run_batches(records, model, cfg, backend,
-                                          batch_reads, device):
+                                          batch_reads, device, subst):
         paths = out["path"].cpu().numpy()
         scores = out["score"].cpu().numpy()
         bll = out["base_loglik"].cpu().numpy() if compute_probabilities else None
@@ -223,10 +238,11 @@ def call_snps_reads(
     model = model or default_model(cfg.k)
     records = _preprocess(raws, genome, model, cfg, workers, prep=prep)
     dev = torch.device(device)
+    subst = _maybe_subst(genome, model, cfg, backend, dev)
     accs = {c.name: callmod.make_accumulators(len(c), with_votes=True, device=dev)
             for c in genome}
     for group, batch, out in _run_batches(records, model, cfg, backend,
-                                          batch_reads, dev):
+                                          batch_reads, dev, subst):
         by_contig: dict = {}
         for r in range(batch.n_reads):
             by_contig.setdefault(group[r].anchor.contig, []).append(r)

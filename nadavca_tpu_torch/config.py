@@ -32,7 +32,7 @@ class AlignConfig:
     snp_prior: float = 0.25       # uniform prior over the 4 bases
     snp_threshold: float = 0.9    # posterior threshold for emitting a call
     snp_rescore: str = "local"    # "local": restricted re-DP per substitution
-                                  # (reference semantics; not ported yet, raises);
+                                  # (reference semantics);
                                   # "fixed": closed-form fixed-path re-score (approximation)
     snp_local_window: int = 192   # max samples per local re-DP window
     snp_ll_clip: float = 25.0     # per-read per-position |log-lik delta| cap

@@ -16,6 +16,7 @@ import torch
 from .config import AlignConfig
 from .genome import Contig, Genome
 from .kmer_model import KmerModel
+from .ops.subst_tables import SubstTables
 from .pipeline import Batch
 from .sched.bands import ChunkedBands
 
@@ -74,3 +75,25 @@ def batch_from_numpy(d: Mapping) -> Batch:
     kw.update({k: np.asarray(d[k], np.int32).copy() for k in i32})
     return Batch(bands=bands, read_ids=list(d["read_ids"]),
                  contigs=list(d["contigs"]), n_reads=int(d["n_reads"]), **kw)
+
+
+def subst_tables_from_numpy(tab4, valid, contig_offsets: Mapping[str, int],
+                            g_total: int, k: int, device="cuda") -> SubstTables:
+    """The JAX package's ``SubstTables`` fields, as numpy, in the port's layout.
+
+    ``tab4`` is its ``(3, k*4, rows_p // 128, 1, 128)`` stacked table; joining
+    the last three axes gives the port's ``(3, k*4, rows_p)`` — the same
+    numbers at the same column offsets.
+    """
+    tab4 = np.asarray(tab4, np.float32)
+    if tab4.ndim != 5 or tab4.shape[0] != 3 or tab4.shape[1] != 4 * k:
+        raise ValueError(f"tab4: expected (3, {4 * k}, rows_p/128, 1, 128), "
+                         f"got {tab4.shape}")
+    tab = np.ascontiguousarray(tab4.reshape(3, 4 * k, -1))
+    valid = np.asarray(valid, bool)
+    if valid.shape != (tab.shape[2],):
+        raise ValueError(f"valid: expected ({tab.shape[2]},), got {valid.shape}")
+    return SubstTables(
+        tab=torch.from_numpy(tab.copy()).to(device),
+        valid=torch.from_numpy(valid.copy()).to(device),
+        contig_offsets=dict(contig_offsets), g_total=int(g_total), k=int(k))

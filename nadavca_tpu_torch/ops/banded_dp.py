@@ -17,7 +17,7 @@ in k-mer positions):
                              repeating the final value
 
 Not ported yet (each raises ``NotImplementedError``): the skip transition
-(``cfg.use_skip``), pinned endpoints, and ``base_loglik_local_batch``.
+(``cfg.use_skip``) and pinned endpoints.
 """
 
 from __future__ import annotations
@@ -240,7 +240,109 @@ def base_loglik_batch(
     return out
 
 
-def base_loglik_local_batch(*args, **kwargs):
-    raise NotImplementedError(
-        "the local re-DP rescore (snp_rescore='local') is not ported yet; "
-        "use AlignConfig(snp_rescore='fixed')")
+def base_loglik_local_batch(
+    x: torch.Tensor,             # (R, T) f32
+    path: torch.Tensor,          # (R, T) i32 — global Viterbi path
+    t_len: torch.Tensor,         # (R,) i32
+    window_codes: torch.Tensor,  # (R, L) i32 (4 = pad/N)
+    ids: torch.Tensor,           # (R, N) i32 kmer ids (-1 invalid)
+    level_mean: torch.Tensor,    # (4^k,) f32
+    level_std: torch.Tensor,     # (4^k,) f32
+    k: int,
+    cfg: AlignConfig = AlignConfig(),
+    t_w: int = 192,
+) -> torch.Tensor:
+    """(R, L, 4) base log-likelihoods via restricted local re-DP (batched).
+
+    Twin of the JAX ``base_loglik_local_batch``: for every (read, base
+    position, candidate base) a tiny Viterbi over the <= k affected k-mer
+    positions re-optimizes the local path, over the samples the global path
+    assigned to those positions (truncated at t_w samples; the truncation
+    drops the same evidence for every base so deltas stay comparable). Plain
+    eager tensor code: a Python loop of t_w steps over an (R, L, k, 4) state.
+    """
+    R, T = x.shape
+    L = window_codes.shape[1]
+    N = ids.shape[1]
+    dev = x.device
+    i64 = torch.int64
+    path = path.to(i64)
+    t_len = t_len.to(i64)
+    ids = ids.to(i64)
+    ref_base = window_codes.to(i64)
+
+    tmask = torch.arange(T, device=dev)[None, :] < t_len[:, None]
+    # padding samples -> overflow segment
+    path_safe = torch.where(tmask, path, torch.full((), N, dtype=i64, device=dev))
+
+    # segment bounds from the monotone path by bisection: cnt[i] = #{t :
+    # path[t] < i}, so S = cnt[p_lo], E = cnt[p_hi + 1]
+    pos_all = torch.arange(N + 1, dtype=i64, device=dev)[None, :].expand(R, N + 1)
+    cnt = torch.searchsorted(path_safe.contiguous(), pos_all.contiguous(),
+                             right=False)                        # (R, N + 1)
+
+    first_pos = path[:, 0]
+    last_t = (t_len - 1).clamp(min=0)
+    last_pos = torch.gather(path, 1, last_t[:, None])[:, 0]
+
+    i_idx = torch.arange(L, dtype=i64, device=dev)[None, :]      # (1, L)
+    p_lo = (i_idx - k + 1).clamp(0, N - 1)
+    p_hi = i_idx.clamp(0, N - 1)
+    p_lo = torch.maximum(p_lo, first_pos[:, None])               # (R, L)
+    p_hi = torch.minimum(p_hi, last_pos[:, None])
+    kk = p_hi - p_lo + 1                                         # positions in window
+    valid_i = (kk > 0) & (ref_base < 4)
+
+    S = torch.gather(cnt, 1, p_lo.clamp(0, N))                   # (R, L)
+    E = torch.gather(cnt, 1, (p_hi + 1).clamp(0, N))
+    W = (E - S).clamp(0, t_w)
+
+    # gather sample windows: xs[r, i, s] = x[r, S[r, i] + s]
+    samp = S[:, :, None] + torch.arange(t_w, dtype=i64, device=dev)[None, None, :]
+    xs = torch.gather(x, 1, samp.clamp(0, T - 1).reshape(R, L * t_w)).reshape(R, L, t_w)
+
+    # substituted levels: for j in 0..k-1 at position p = p_lo + j
+    j_idx = torch.arange(k, dtype=i64, device=dev)[None, None, :]  # (1, 1, k)
+    p = p_lo[:, :, None] + j_idx                                 # (R, L, k)
+    j_ok = j_idx < kk[:, :, None]
+    ids_p = torch.gather(ids, 1, p.clamp(0, N - 1).reshape(R, L * k)).reshape(R, L, k)
+    ids_ok = ids_p >= 0
+    off = i_idx[:, :, None] - p                                  # (R, L, k)
+    inside = (off >= 0) & (off < k)
+    pow4 = torch.tensor([4 ** (k - 1 - o) for o in range(k)], dtype=i64, device=dev)
+    w4 = torch.where(inside, pow4[off.clamp(0, k - 1)], torch.zeros_like(off))
+    b_idx = torch.arange(4, dtype=i64, device=dev)[None, None, None, :]
+    nid = ids_p[..., None] + (b_idx - ref_base[:, :, None, None]) * w4[..., None]
+    nid = nid.clamp(0, level_mean.shape[0] - 1)                  # (R, L, k, 4)
+    mu_s = level_mean[nid]
+    sg_s = level_std[nid]
+    em_const = -torch.log(sg_s) - _HALF_LOG_2PI                  # (R, L, k, 4)
+    inv2v = 0.5 / (sg_s * sg_s)
+    pos_dead = ~(j_ok & ids_ok)                                  # (R, L, k)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    em_const = torch.where(pos_dead[..., None], neg, em_const)
+
+    # restricted Viterbi: state (R, L, k, 4), loop over local samples
+    neg_row = torch.full((R, L, 1, 4), NEG_INF, dtype=torch.float32, device=dev)
+    first_slot = (j_idx == 0)[..., None]                         # (1, 1, k, 1)
+    v = torch.full((R, L, k, 4), NEG_INF, dtype=torch.float32, device=dev)
+    # steps at or beyond the longest window are identity for every position
+    for s in range(min(t_w, int(W.max())) if W.numel() else 0):
+        d = xs[:, :, s][:, :, None, None] - mu_s
+        emit = em_const - d * d * inv2v
+        if s == 0:
+            v_new = torch.where(first_slot, emit, neg)
+        else:
+            stay = v + cfg.log_p_stay
+            move = torch.cat([neg_row, v[:, :, :-1, :]], dim=2) + cfg.log_p_move
+            v_new = emit + torch.maximum(stay, move)
+        act = (s < W)[:, :, None, None]
+        v = torch.where(act, v_new, v)
+
+    score = torch.gather(
+        v, 2, (kk - 1).clamp(0, k - 1)[:, :, None, None].expand(R, L, 1, 4))[:, :, 0, :]
+    ref_score = torch.gather(score, 2, ref_base.clamp(0, 3)[:, :, None])
+    out = score - ref_score
+    all_ok = (valid_i & (W > 0)
+              & torch.where(j_ok, ids_ok, torch.ones_like(ids_ok)).all(dim=2))
+    return torch.where(all_ok[:, :, None], out, torch.zeros_like(out))

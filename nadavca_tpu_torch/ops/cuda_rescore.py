@@ -1,0 +1,487 @@
+"""The four kernels of the local re-DP rescore: wrappers and plain versions.
+
+Counterpart of ``nadavca_tpu/ops/pallas_rescore.py``. Each TPU kernel has a
+hand-written CUDA kernel under ``csrc/`` and, beside its wrapper here, a plain
+PyTorch version with the same contract:
+
+  ``path_counts``       csrc/path_counts.cu    plain: ``path_counts_plain``
+  ``shear_gather``      csrc/shear_gather.cu   plain: ``shear_gather_plain``
+  ``rescore_fill_tab``  csrc/rescore.cu        plain: ``rescore_fill_tab_plain``
+  ``rescore_fill``      csrc/rescore.cu        plain: ``rescore_fill_plain``
+
+As in ``ops/cuda_dp``: a wrapper checks its arguments, runs the plain version
+on CPU tensors, launches the kernel on CUDA tensors or raises, never falls
+back, and counts its launches in ``<wrapper>.launches``.
+
+``base_loglik_local_cuda`` strings them together: path → segment bounds (K3) →
+per-position sample windows (K4) → the local DP per substitution (K5 with
+genome tables, K6 with per-batch constants). What lies between the kernels is
+plain tensor code, as it is XLA code in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..config import AlignConfig
+from ..utils import kernel_build
+from .banded_dp import NEG_INF
+from .cuda_dp import _check, _stream
+from .subst_tables import SubstTables
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+LT = 128      # positions per tile of the slab rule
+SPAN = 2048   # samples a tile's window starts may spread over (slab rule)
+MAX_K = 8     # k-mer lengths csrc/rescore.cu is instantiated for
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+# --------------------------------------------------------------- path counts
+def path_counts_plain(path_safe, n_lanes: int, t_len):
+    """Plain version of :func:`path_counts`."""
+    R, T = path_safe.shape
+    dev = path_safe.device
+    live = torch.arange(T, device=dev)[None, :] < t_len.to(torch.int64)[:, None]
+    p = torch.where(live, path_safe.to(torch.int64),
+                    torch.full((), n_lanes, dtype=torch.int64, device=dev))
+    lanes = torch.arange(n_lanes, dtype=torch.int64, device=dev)[None, :]
+    return torch.searchsorted(p.contiguous(), lanes.expand(R, n_lanes).contiguous(),
+                              right=False).to(torch.int32)
+
+
+def path_counts(path_safe: torch.Tensor, n_lanes: int,
+                t_len: torch.Tensor) -> torch.Tensor:
+    """``C[r, i] = #{t < t_len[r] : path_safe[r, t] < i}`` for i in [0, n_lanes).
+
+    path_safe (R, T) i32, nondecreasing over each read's first ``t_len[r]``
+    samples (what lies beyond is never counted); t_len (R,) i32. Returns
+    (R, n_lanes) i32 — searchsorted-left on a monotone path, the contract of
+    ``path_counts_pallas``.
+    """
+    dev = path_safe.device
+    if path_safe.dim() != 2:
+        raise ValueError(f"path_safe: expected (R, T), got {tuple(path_safe.shape)}")
+    R, T = path_safe.shape
+    n_lanes = int(n_lanes)
+    if n_lanes < 1:
+        raise ValueError(f"n_lanes must be positive, got {n_lanes}")
+    _check("path_safe", path_safe, torch.int32, (R, T), dev)
+    _check("t_len", t_len, torch.int32, (R,), dev)
+    if dev.type == "cpu":
+        return path_counts_plain(path_safe, n_lanes, t_len)
+    if dev.type != "cuda":
+        raise ValueError(f"path_counts: unsupported device {dev}")
+    lib = kernel_build.load_library()
+    cnt = torch.empty((R, n_lanes), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.nadavca_path_counts(
+            path_safe.data_ptr(), t_len.data_ptr(), cnt.data_ptr(),
+            R, T, n_lanes, _stream(dev))
+    kernel_build.check_launch(lib, code, "path_counts")
+    path_counts.launches += 1
+    return cnt
+
+
+path_counts.launches = 0
+
+
+# -------------------------------------------------------------- shear gather
+def shear_slab_base(S: torch.Tensor, T: int, span: int, lt: int = LT) -> torch.Tensor:
+    """Aligned slab base per (read, position tile): (R, L // lt), same dtype
+    as S — shared by the gather and by the caller's span mask."""
+    R, L = S.shape
+    base = S.reshape(R, L // lt, lt).min(dim=2).values.clamp(0, T - span - 256)
+    return torch.div(base, 128, rounding_mode="floor") * 128
+
+
+def span_ok(S: torch.Tensor, T: int, span: int = SPAN, lt: int = LT) -> torch.Tensor:
+    """(R, L) bool: True where position i's window start lies inside the slab
+    of its tile, ``S - base`` in [0, span). The gather zeroes the others and
+    the caller masks them (the span mask)."""
+    R, L = S.shape
+    d = S.reshape(R, L // lt, lt) - shear_slab_base(S, T, span, lt)[:, :, None]
+    return ((d >= 0) & (d < span)).reshape(R, L)
+
+
+def _check_shear(x, S, t_w: int, span: int, slab: bool):
+    if x.dim() != 2 or S.dim() != 2 or S.shape[0] != x.shape[0]:
+        raise ValueError(f"x (R, T) and S (R, L) expected, got {tuple(x.shape)} "
+                         f"and {tuple(S.shape)}")
+    T, L = x.shape[1], S.shape[1]
+    if t_w < 1:
+        raise ValueError(f"t_w must be positive, got {t_w}")
+    if slab:
+        if L % LT != 0:
+            raise ValueError(f"L={L} must be a multiple of {LT} under the slab rule")
+        if T < span + 256:
+            raise ValueError(f"T={T} is shorter than span + 256 = {span + 256}")
+        if t_w > 256:
+            raise ValueError(f"t_w={t_w} exceeds 256: a window could leave the row")
+
+
+def shear_gather_plain(x, S, t_w: int, span: int = SPAN, slab: bool = True):
+    """Plain version of :func:`shear_gather`."""
+    _check_shear(x, S, t_w, span, slab)
+    R, T = x.shape
+    L = S.shape[1]
+    dev = x.device
+    S64 = S.to(torch.int64)
+    samp = S64[:, :, None] + torch.arange(t_w, dtype=torch.int64, device=dev)
+    xs = torch.gather(x, 1, samp.clamp(0, T - 1).reshape(R, L * t_w)).reshape(R, L, t_w)
+    if slab:
+        xs = torch.where(span_ok(S64, T, span)[:, :, None], xs, torch.zeros_like(xs))
+    return xs.permute(2, 0, 1).contiguous()
+
+
+def shear_gather(x: torch.Tensor, S: torch.Tensor, t_w: int, span: int = SPAN,
+                 slab: bool = True) -> torch.Tensor:
+    """``xs[s, r, i] = x[r, S[r, i] + s]`` — (t_w, R, L) f32, exact.
+
+    x (R, T) f32; S (R, L) i32 with 0 <= S. With ``slab`` (the contract of
+    ``shear_gather_pallas``): per (read, 128-position tile) the aligned base
+    is :func:`shear_slab_base`; an element whose ``S - base`` lies outside
+    [0, span) comes out 0.0 (the caller masks such positions), everything
+    else is exact; needs T >= span + 256, L a multiple of 128 and t_w <= 256.
+    Without ``slab`` the index ``S + s`` is clamped to [0, T - 1] and nothing
+    is zeroed.
+    """
+    dev = x.device
+    t_w, span = int(t_w), int(span)
+    _check_shear(x, S, t_w, span, slab)
+    R, T = x.shape
+    L = S.shape[1]
+    _check("x", x, torch.float32, (R, T), dev)
+    _check("S", S, torch.int32, (R, L), dev)
+    if dev.type == "cpu":
+        return shear_gather_plain(x, S, t_w, span, slab)
+    if dev.type != "cuda":
+        raise ValueError(f"shear_gather: unsupported device {dev}")
+    lib = kernel_build.load_library()
+    base = shear_slab_base(S, T, span).contiguous() if slab else None
+    xs = torch.empty((t_w, R, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.nadavca_shear_gather(
+            x.data_ptr(), S.data_ptr(), base.data_ptr() if slab else None,
+            xs.data_ptr(), R, T, L, t_w, span, LT, _stream(dev))
+    kernel_build.check_launch(lib, code, "shear_gather")
+    shear_gather.launches += 1
+    return xs
+
+
+shear_gather.launches = 0
+
+
+# ------------------------------------------------------------------- rescore
+def _check_rescore(xs, w, kk, codes, t_w: int):
+    if xs.dim() != 3:
+        raise ValueError(f"xs: expected (t_w, R, L), got {tuple(xs.shape)}")
+    if xs.shape[0] != t_w or t_w < 1:
+        raise ValueError(f"xs has {xs.shape[0]} sample rows, t_w is {t_w}")
+    dev = xs.device
+    _, R, L = xs.shape
+    _check("xs", xs, torch.float32, (t_w, R, L), dev)
+    for name, t in (("w", w), ("kk", kk), ("codes", codes)):
+        _check(name, t, torch.int32, (R, L), dev)
+    return R, L, dev
+
+
+def _rescore_plain(xs, em, mu, iv, w, kk, codes, k: int, cfg: AlignConfig, t_w: int):
+    """The local DP on (k, 4, R, L) constants: a Python loop over the samples
+    with the kernel's operations in the kernel's order."""
+    _, R, L = xs.shape
+    dev = xs.device
+    em, mu, iv = (a.reshape(k, 4, R, L) for a in (em, mu, iv))
+    w = w.clamp(max=t_w)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    neg_row = torch.full((1, 4, R, L), NEG_INF, dtype=torch.float32, device=dev)
+    first_slot = (torch.arange(k, device=dev) == 0)[:, None, None, None]
+
+    d0 = xs[0][None, None] - mu
+    v = torch.where(first_slot, em - d0 * d0 * iv, neg)     # whatever W is
+    # steps at or beyond the longest window are identity for every position
+    for s in range(1, int(w.max()) if w.numel() else 0):
+        d = xs[s][None, None] - mu
+        emit = em - d * d * iv
+        stay = v + cfg.log_p_stay
+        move = torch.cat([neg_row, v[: k - 1]], dim=0) + cfg.log_p_move
+        v_new = emit + torch.maximum(stay, move)
+        v = torch.where((s < w)[None, None], v_new, v)
+
+    kk1 = (kk - 1).to(torch.int64)
+    in_range = (kk1 >= 0) & (kk1 < k)
+    out = torch.gather(v, 0, kk1.clamp(0, k - 1)[None, None].expand(1, 4, R, L))[0]
+    out = torch.where(in_range[None], out, torch.zeros_like(out))   # (4, R, L)
+    cod = codes.to(torch.int64)
+    ref = torch.gather(out, 0, cod.clamp(0, 3)[None])[0]
+    ref = torch.where((cod >= 0) & (cod < 4), ref, torch.zeros_like(ref))
+    return out - ref[None]
+
+
+def _check_tab(woff, tab, R: int, L: int, k: int, dev):
+    if tab.dim() != 3 or tab.shape[0] != 3 or tab.shape[1] != 4 * k:
+        raise ValueError(f"tab: expected (3, {4 * k}, rows_p), got {tuple(tab.shape)}")
+    rows_p = tab.shape[2]
+    _check("tab", tab, torch.float32, (3, 4 * k, rows_p), dev)
+    _check("woff", woff, torch.int32, (R,), dev)
+    if R:
+        lo, hi = int(woff.min()), int(woff.max())
+        # the kernel reads L columns from each offset and never clamps: a
+        # clamped slice would be the wrong genome positions, silently
+        if lo < 0 or hi + L > rows_p:
+            raise ValueError(
+                f"window offsets [{lo}, {hi}] + {L} columns leave the table "
+                f"of {rows_p} columns")
+    return rows_p
+
+
+def rescore_fill_tab_plain(xs, w, kk, codes, woff, tab, cfg: AlignConfig, t_w: int):
+    """Plain version of :func:`rescore_fill_tab`."""
+    k = cfg.k
+    R, L, dev = _check_rescore(xs, w, kk, codes, t_w)
+    _check_tab(woff, tab, R, L, k, dev)
+    cols = woff.to(torch.int64)[:, None] + torch.arange(L, device=dev)[None, :]
+    em, mu, iv = (tab[p][:, cols] for p in range(3))        # (k*4, R, L) each
+    return _rescore_plain(xs, em, mu, iv, w, kk, codes, k, cfg, t_w)
+
+
+def rescore_fill_tab(xs: torch.Tensor, w: torch.Tensor, kk: torch.Tensor,
+                     codes: torch.Tensor, woff: torch.Tensor, tab: torch.Tensor,
+                     cfg: AlignConfig, t_w: int) -> torch.Tensor:
+    """The local DP with constants read from the genome table.
+
+    xs (t_w, R, L) f32 from :func:`shear_gather`; w, kk, codes (R, L) i32
+    (window length, live slots, reference base 0..3); woff (R,) i32 table
+    column of each read's first window position; tab (3, k*4, rows_p) f32 the
+    stacked [em, mu, iv] of ``SubstTables``. Returns (4, R, L) f32 scores per
+    base minus the reference base's — the contract of
+    ``rescore_fill_tab_pallas``. Offsets that would leave the table raise.
+    """
+    k = cfg.k
+    R, L, dev = _check_rescore(xs, w, kk, codes, t_w)
+    rows_p = _check_tab(woff, tab, R, L, k, dev)
+    if dev.type == "cpu":
+        return rescore_fill_tab_plain(xs, w, kk, codes, woff, tab, cfg, t_w)
+    if dev.type != "cuda":
+        raise ValueError(f"rescore_fill_tab: unsupported device {dev}")
+    if k > MAX_K:
+        raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
+    lib = kernel_build.load_library()
+    out = torch.empty((4, R, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.nadavca_rescore_tab(
+            xs.data_ptr(), w.data_ptr(), kk.data_ptr(), codes.data_ptr(),
+            woff.data_ptr(), tab.data_ptr(), out.data_ptr(), R, L, t_w, k,
+            rows_p, float(cfg.log_p_stay), float(cfg.log_p_move), _stream(dev))
+    kernel_build.check_launch(lib, code, "rescore_fill_tab")
+    rescore_fill_tab.launches += 1
+    return out
+
+
+rescore_fill_tab.launches = 0
+
+
+def rescore_fill_plain(xs, em, mu, iv, w, kk, codes, cfg: AlignConfig, t_w: int):
+    """Plain version of :func:`rescore_fill`."""
+    return _rescore_plain(xs, em, mu, iv, w, kk, codes, cfg.k, cfg, t_w)
+
+
+def rescore_fill(xs: torch.Tensor, em: torch.Tensor, mu: torch.Tensor,
+                 iv: torch.Tensor, w: torch.Tensor, kk: torch.Tensor,
+                 codes: torch.Tensor, cfg: AlignConfig, t_w: int) -> torch.Tensor:
+    """The local DP with constants passed per batch.
+
+    As :func:`rescore_fill_tab`, with em, mu, iv (k*4, R, L) f32 (row
+    ``j*4 + b`` is slot j, base b; ``em`` is NEG_INF at dead slots) in place
+    of the table — the contract of ``rescore_fill_pallas``.
+    """
+    k = cfg.k
+    R, L, dev = _check_rescore(xs, w, kk, codes, t_w)
+    for name, t in (("em", em), ("mu", mu), ("iv", iv)):
+        _check(name, t, torch.float32, (4 * k, R, L), dev)
+    if dev.type == "cpu":
+        return rescore_fill_plain(xs, em, mu, iv, w, kk, codes, cfg, t_w)
+    if dev.type != "cuda":
+        raise ValueError(f"rescore_fill: unsupported device {dev}")
+    if k > MAX_K:
+        raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
+    lib = kernel_build.load_library()
+    out = torch.empty((4, R, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.nadavca_rescore(
+            xs.data_ptr(), em.data_ptr(), mu.data_ptr(), iv.data_ptr(),
+            w.data_ptr(), kk.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            R, L, t_w, k, float(cfg.log_p_stay), float(cfg.log_p_move),
+            _stream(dev))
+    kernel_build.check_launch(lib, code, "rescore_fill")
+    rescore_fill.launches += 1
+    return out
+
+
+rescore_fill.launches = 0
+
+KERNELS = (path_counts, shear_gather, rescore_fill_tab, rescore_fill)
+
+
+def reset_launches() -> None:
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+# ---------------------------------------------------------- the local rescore
+def local_windows(path, t_len, window_codes, N: int, k: int, t_w: int):
+    """Window bounds of every position from the global path.
+
+    Runs K3 and the tensor code around it. ``window_codes`` (R, L) is already
+    padded to a multiple of 128. Returns (S, W, kk, p_lo, valid_i), each
+    (R, L): first sample and length (<= t_w) of the window, number of live
+    slots, first k-mer position of the window, and whether position i is
+    inside the path's span with a real base.
+    """
+    R, T = path.shape
+    L = window_codes.shape[1]
+    dev = path.device
+    # the path is monotone over live samples, so segment bounds are bisection
+    # counts: start[i] = #{t : path[t] < i}, end[i] = start[i + 1]. Count
+    # index i runs 0..N so both bounds come from one array.
+    tmask = torch.arange(T, device=dev)[None, :] < t_len[:, None]
+    Np = _round_up(N + 1, 128)
+    # sentinel >= Np: padded samples never count
+    path_safe = torch.where(tmask, path, torch.full((), Np, dtype=torch.int32,
+                                                    device=dev))
+    cnt = path_counts(path_safe, Np, t_len)                     # (R, Np)
+
+    first_pos = path[:, 0]
+    last_t = (t_len - 1).clamp(min=0).to(torch.int64)
+    last_pos = torch.gather(path, 1, last_t[:, None])[:, 0]
+
+    i_idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    p_lo = torch.maximum((i_idx - k + 1).clamp(0, N - 1), first_pos[:, None])
+    p_hi = torch.minimum(i_idx.clamp(0, N - 1), last_pos[:, None])
+    kk = p_hi - p_lo + 1
+    valid_i = (kk > 0) & (window_codes < 4)
+
+    # S[i] = cnt[clip(i-k+1, 0, N-1)] and E[i] = cnt[clip(i, 0, N-1) + 1] are
+    # edge-clamped shifts of the count row: no gathers. Clipping against
+    # first/last_pos is unnecessary because cnt saturates (0 below first_pos,
+    # t_len above last_pos).
+    def edge_pad(row, left, right):
+        return torch.cat([row[:, :1].expand(R, left), row,
+                          row[:, -1:].expand(R, right)], dim=1)[:, :L]
+
+    S = edge_pad(cnt[:, :N], k - 1, max(L - N - (k - 1), 0))
+    E = edge_pad(cnt[:, 1:N + 1], 0, max(L - N, 0))
+    W = (E - S).clamp(0, t_w)
+    return S, W, kk, p_lo, valid_i
+
+
+def batch_constants(p_lo, kk, window_codes, ids, level_mean, level_std, k: int):
+    """Per-batch substituted levels for K6: em, mu, iv (k*4, R, L) f32 and
+    the (R, L) mask of positions all of whose live slots hold a real k-mer."""
+    R, L = window_codes.shape
+    N = ids.shape[1]
+    dev = ids.device
+    i64 = torch.int64
+    i_idx = torch.arange(L, dtype=i64, device=dev)[None, :, None]
+    j_id = torch.arange(k, dtype=i64, device=dev)[None, None, :]
+    p = p_lo.to(i64)[:, :, None] + j_id                          # (R, L, k)
+    j_ok = j_id < kk[:, :, None]
+    ids_p = torch.gather(ids.to(i64), 1,
+                         p.clamp(0, N - 1).reshape(R, L * k)).reshape(R, L, k)
+    ids_ok = ids_p >= 0
+    off = i_idx - p
+    inside = (off >= 0) & (off < k)
+    pow4 = torch.tensor([4 ** (k - 1 - o) for o in range(k)], dtype=i64, device=dev)
+    w4 = torch.where(inside, pow4[off.clamp(0, k - 1)], torch.zeros_like(off))
+    b_id = torch.arange(4, dtype=i64, device=dev)[None, None, None, :]
+    nid = ids_p[..., None] + (b_id - window_codes.to(i64)[:, :, None, None]) * w4[..., None]
+    nid = nid.clamp(0, level_mean.shape[0] - 1)                  # (R, L, k, 4)
+    mu_s = level_mean[nid]
+    sg_s = level_std[nid]
+    em = -torch.log(sg_s) - _HALF_LOG_2PI
+    iv = 0.5 / (sg_s * sg_s)
+    dead = ~(j_ok & ids_ok)
+    em = torch.where(dead[..., None],
+                     torch.full((), NEG_INF, dtype=torch.float32, device=dev), em)
+
+    def to_kernel_layout(a):   # (R, L, k, 4) -> (k*4, R, L)
+        return a.permute(2, 3, 0, 1).reshape(k * 4, R, L).contiguous()
+
+    slots_ok = torch.where(j_ok, ids_ok, torch.ones_like(ids_ok)).all(dim=2)
+    return to_kernel_layout(em), to_kernel_layout(mu_s), to_kernel_layout(iv), slots_ok
+
+
+def base_loglik_local_cuda(
+    x: torch.Tensor,             # (R, T) f32
+    path: torch.Tensor,          # (R, T) i32
+    t_len: torch.Tensor,         # (R,) i32
+    window_codes: torch.Tensor,  # (R, L) i32
+    ids: torch.Tensor,           # (R, N) i32
+    level_mean: torch.Tensor,
+    level_std: torch.Tensor,
+    k: int,
+    cfg: AlignConfig = AlignConfig(),
+    t_w: int = 192,
+    tables: Optional[SubstTables] = None,
+    window_off: Optional[torch.Tensor] = None,   # (R,) i32 table column per read
+) -> torch.Tensor:
+    """(R, L, 4) base log-likelihoods — kernel version of
+    ``banded_dp.base_loglik_local_batch``, twin of ``base_loglik_local_pallas``.
+
+    With ``tables`` the constants come from the genome tables (K5), and
+    positions whose window is clipped by the read's ends (``kk < k``) or
+    invalid in the genome are masked to exactly 0. Without, they are built per
+    batch (K6) and edge positions are scored like the ``scan`` twin's.
+
+    The span mask: where T >= 2048 + 256 the sample windows are gathered
+    under the slab rule, and a position whose window start lies 2048 samples
+    or more beyond its tile's aligned base is masked to 0. Below that T there
+    is no mask and sample indices clamp to T - 1.
+    """
+    if k != cfg.k:
+        raise ValueError(f"k={k} differs from cfg.k={cfg.k}")
+    if (tables is None) != (window_off is None):
+        raise ValueError("tables and window_off go together")
+    T = x.shape[1]
+    L_in = window_codes.shape[1]
+    N = ids.shape[1]
+    # pad the position axis so that tiles of the slab rule are whole (padded
+    # positions carry base code 4 => masked out)
+    L = _round_up(L_in, LT)
+    if L != L_in:
+        window_codes = torch.nn.functional.pad(window_codes, (0, L - L_in), value=4)
+    window_codes = window_codes.contiguous()
+
+    S, W, kk, p_lo, valid_i = local_windows(path, t_len, window_codes, N, k, t_w)
+
+    # ---- xs: per-position sample windows
+    S_c = S.clamp(0, T - 1).contiguous()
+    slab = T >= SPAN + 256
+    if slab:
+        W = torch.where(span_ok(S_c, T), W, torch.zeros_like(W))
+    xs = shear_gather(x, S_c, t_w, span=SPAN, slab=slab)         # (t_w, R, L)
+
+    W = W.contiguous()
+    ref_clipped = window_codes.clamp(0, 3)
+    if tables is not None:
+        # only the validity row is sliced here; the kernel reads its table
+        # columns itself. Read-local edge positions (clipped windows) are
+        # masked: kk == k required.
+        cols = window_off.to(torch.int64)[:, None] + torch.arange(L, device=x.device)
+        scores = rescore_fill_tab(xs, W, kk, ref_clipped, window_off.contiguous(),
+                                  tables.tab, cfg, t_w)           # checks the offsets
+        valid_i = valid_i & (kk == k) & tables.valid[cols]
+        all_ok = valid_i & (W > 0)
+    else:
+        em, mu, iv, slots_ok = batch_constants(p_lo, kk, window_codes, ids,
+                                               level_mean, level_std, k)
+        scores = rescore_fill(xs, em, mu, iv, W, kk, ref_clipped, cfg, t_w)
+        all_ok = valid_i & (W > 0) & slots_ok
+    out = scores.permute(1, 2, 0)                                # (R, L, 4)
+    out = torch.where(all_ok[:, :, None], out, torch.zeros_like(out))
+    return out[:, :L_in, :].contiguous()

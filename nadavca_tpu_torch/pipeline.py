@@ -5,12 +5,14 @@ normalization, anchoring, window/level precompute and batch padding (numpy);
 ``stage_batch`` puts the batch on the requested device; ``device_compute``
 runs the banded Viterbi (the CUDA kernels of ``ops/cuda_dp`` under backend
 ``"cuda"``, the plain loop of ``ops/banded_dp`` under ``"scan"``) and the
-fixed-path rescore as eager PyTorch. There is no jit layer: ``align_batch``
-calls ``device_compute`` directly.
+rescore: the local re-DP (``snp_rescore="local"``, the default; the CUDA
+kernels of ``ops/cuda_rescore`` under ``"cuda"``, with genome substitution
+tables when the caller built them) or the closed-form fixed-path rescore as
+eager PyTorch. There is no jit layer: ``align_batch`` calls ``device_compute``
+directly.
 
-Not ported yet (each raises ``NotImplementedError``): ``snp_rescore="local"``
-(the default of ``AlignConfig``), the native C++ prep, genome substitution
-tables.
+Not ported yet (each raises ``NotImplementedError``): the skip transition, the
+two-sample fill step, the native C++ prep.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from .anchor import Anchor, SeedIndex, anchor_basecall, signal_anchor_path
 from .config import AlignConfig
 from .genome import Genome, kmer_ids
 from .kmer_model import KmerModel
-from .ops import banded_dp, cuda_dp
+from .ops import banded_dp, cuda_dp, cuda_rescore
 from .sched.bands import ChunkedBands, build_chunked_bands
 
 
@@ -257,11 +259,7 @@ def path_to_segments(path: np.ndarray, t_len: int, n_ref: int):
 
 def check_supported(cfg: AlignConfig) -> None:
     """Raise for configurations whose device path is not ported yet."""
-    if cfg.snp_rescore == "local":
-        raise NotImplementedError(
-            "snp_rescore='local' (the local re-DP rescore) is not ported yet; "
-            "use AlignConfig(snp_rescore='fixed')")
-    if cfg.snp_rescore != "fixed":
+    if cfg.snp_rescore not in ("local", "fixed"):
         raise ValueError(f"unknown snp_rescore {cfg.snp_rescore!r}")
     if cfg.use_skip:
         raise NotImplementedError(
@@ -273,12 +271,15 @@ def check_supported(cfg: AlignConfig) -> None:
 
 def device_compute(
     x, t_len, mu, sigma, n_ref, lo, delta, mu_b, sg_b, codes, ids, lm, ls,
+    woff, subst,
     cfg: AlignConfig, backend: str, k: int,
 ):
     """The per-device compute body: banded Viterbi, then the rescore.
 
     lo/delta are always chunked (R, n_chunks); the scan backend expands them
-    here. Returns (score (R,), path (R, T) i32, base_ll (R, L, 4)).
+    here. ``woff`` (R,) i32 and ``subst`` (the genome's ``SubstTables``) are
+    None off the tables path. Returns (score (R,), path (R, T) i32, base_ll
+    (R, L, 4)).
     """
     check_supported(cfg)
     if backend == "cuda":
@@ -292,8 +293,18 @@ def device_compute(
             x, t_len, mu, sigma, n_ref, lo_full, cfg)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    stats = banded_dp.segment_stats_batch(res.path, x, t_len, mu.shape[1])
-    base_ll = banded_dp.base_loglik_batch(codes, ids, stats, lm, ls, k)
+    if cfg.snp_rescore == "local":
+        if backend == "cuda":
+            base_ll = cuda_rescore.base_loglik_local_cuda(
+                x, res.path, t_len, codes, ids, lm, ls, k, cfg,
+                t_w=cfg.snp_local_window, tables=subst, window_off=woff)
+        else:
+            base_ll = banded_dp.base_loglik_local_batch(
+                x, res.path, t_len, codes, ids, lm, ls, k, cfg,
+                t_w=cfg.snp_local_window)
+    else:
+        stats = banded_dp.segment_stats_batch(res.path, x, t_len, mu.shape[1])
+        base_ll = banded_dp.base_loglik_batch(codes, ids, stats, lm, ls, k)
     return res.score, res.path, base_ll
 
 
@@ -312,17 +323,24 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
     """Put everything ``device_compute`` consumes on ``device``.
 
     Band levels are sliced on the device (``cuda_dp.band_gather``), so the
-    (n_chunks, R, B) band arrays never cross the host-device link.
+    (n_chunks, R, B) band arrays never cross the host-device link. ``subst``
+    (``ops.subst_tables.SubstTables`` of the genome, already on ``device``) is
+    used by the kernel backend's local rescore only; the per-read table
+    offsets are computed here and checked against the table's tail pad.
     """
-    if subst is not None:
-        raise NotImplementedError(
-            "genome substitution tables are not ported yet")
     backend = resolve_backend(cfg, backend)
     dev = torch.device(device)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    woff = None
+    if subst is not None and backend == "cuda" and cfg.snp_rescore == "local":
+        woff = put(subst.window_offsets(
+            batch.contigs, batch.window_start, batch.window_len, batch.strand,
+            padded_len=batch.codes.shape[1]))
+    else:
+        subst = None
     return dict(
         x=put(batch.x), t_len=put(batch.t_len),
         mu=put(batch.mu), sigma=put(batch.sigma),
@@ -331,6 +349,7 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
         codes=put(batch.codes), ids=put(batch.ids),
         lm=put(model.level_mean.astype(np.float32)),
         ls=put(model.level_std.astype(np.float32)),
+        woff=woff, subst=subst,
         backend=backend, k=model.k,
     )
 
@@ -346,7 +365,8 @@ def align_batch(
 ):
     """Run the device part on one batch: DP + base log-likelihoods.
 
-    backend: "auto" or "cuda" (the kernels), "scan". Pass ``staged`` (from
+    backend: "auto" or "cuda" (the kernels), "scan". ``subst``: the genome's
+    substitution tables for the local rescore. Pass ``staged`` (from
     :func:`stage_batch`) to skip the in-line upload. Returns a dict of tensors
     on the device: score (R,), path (R, T), base_loglik (R, L, 4).
     """
@@ -355,7 +375,7 @@ def align_batch(
     score, path, base_ll = device_compute(
         a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"],
         a["delta"], a["mu_b"], a["sg_b"], a["codes"], a["ids"], a["lm"],
-        a["ls"], cfg=cfg, backend=a["backend"], k=a["k"],
+        a["ls"], a["woff"], a["subst"], cfg=cfg, backend=a["backend"], k=a["k"],
     )
     return {
         "score": score,

@@ -10,7 +10,8 @@ committed. A failed build raises with the compiler's output; nothing falls
 back.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math`` — the Viterbi fill must take
-the decisions eager PyTorch takes for the same expression (see
+the decisions eager PyTorch takes for the same expression, and the local
+rescore must give the plain version's scores to the last bit (see
 ``csrc/common.cuh``).
 """
 
@@ -128,6 +129,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nadavca_viterbi_fill.restype = i
     lib.nadavca_backtrack.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.nadavca_backtrack.restype = i
+    lib.nadavca_path_counts.argtypes = [p, p, p, i, i, i, p]
+    lib.nadavca_path_counts.restype = i
+    lib.nadavca_shear_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.nadavca_shear_gather.restype = i
+    lib.nadavca_rescore_tab.argtypes = [p, p, p, p, p, p, p,
+                                        i, i, i, i, i, f, f, p]
+    lib.nadavca_rescore_tab.restype = i
+    lib.nadavca_rescore.argtypes = [p, p, p, p, p, p, p, p,
+                                    i, i, i, i, f, f, p]
+    lib.nadavca_rescore.restype = i
     lib.nadavca_error_string.argtypes = [i]
     lib.nadavca_error_string.restype = ctypes.c_char_p
 

@@ -116,5 +116,3 @@ def test_not_ported_paths_raise(batch):
         tdp.banded_viterbi_batch(*args, AlignConfig(), pin_start=True)
     with pytest.raises(NotImplementedError):
         tdp.banded_viterbi_batch(*args, AlignConfig(), pin_end=True)
-    with pytest.raises(NotImplementedError):
-        tdp.base_loglik_local_batch()

@@ -3,7 +3,7 @@
 These tests need an NVIDIA GPU and ``nvcc``; on a machine without one they
 skip. Run them on the card with
 
-    python -m pytest tests/test_torch_card.py -q -m cuda
+    python -m pytest tests/test_torch_card.py -q -m cuda --noconftest
 
 ``chip_smoke.py`` makes the same comparison at the main path's full shapes.
 """
@@ -61,3 +61,88 @@ def test_kernels_match_plain_versions(card, B):
     path = cuda_dp.backtrack(dec, lo_t, dl_t, j_end, C)
     assert torch.equal(path, cuda_dp.backtrack_plain(dec, lo_t, dl_t, j_end, C))
     assert [k.launches for k in cuda_dp.KERNELS] == [b + 1 for b in before]
+
+
+def _rescore_inputs(card, R, L, T, t_w, k, seed):
+    """Random windows, constants and a small substitution table on the card."""
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    x = put(rng.normal(0, 1, (R, T)).astype(np.float32))
+    S = np.sort(rng.integers(0, T - 300, (R, L)), axis=1).astype(np.int32)
+    W = rng.integers(0, t_w + 1, (R, L)).astype(np.int32)
+    W[0, :8] = 0
+    kk = rng.integers(0, k + 2, (R, L)).astype(np.int32)     # 0 and k+1: no slot
+    codes = rng.integers(0, 4, (R, L)).astype(np.int32)
+    k4 = 4 * k
+    sg = rng.uniform(0.1, 0.4, (k4, R, L)).astype(np.float32)
+    em = (-np.log(sg) - 0.9189385).astype(np.float32)
+    em[rng.random((k4, R, L)) < 0.05] = -1e30                # dead slots
+    mu = rng.normal(0, 1, (k4, R, L)).astype(np.float32)
+    iv = (0.5 / (sg * sg)).astype(np.float32)
+    rows_p = 4096
+    tsg = rng.uniform(0.1, 0.4, (k4, rows_p)).astype(np.float32)
+    tab = np.stack([(-np.log(tsg) - 0.9189385).astype(np.float32),
+                    rng.normal(0, 1, (k4, rows_p)).astype(np.float32),
+                    (0.5 / (tsg * tsg)).astype(np.float32)])
+    woff = rng.integers(0, rows_p - L + 1, R).astype(np.int32)
+    woff[0], woff[-1] = 0, rows_p - L                        # both ends of the table
+    return dict(x=x, S=put(S), W=put(W), kk=put(kk), codes=put(codes), em=put(em),
+                mu=put(mu), iv=put(iv), tab=put(tab), woff=put(woff))
+
+
+@pytest.mark.parametrize("k", [6, 3, 8])
+def test_rescore_kernels_match_plain_versions(card, k):
+    from nadavca_tpu_torch.ops import cuda_rescore
+
+    R, L, T, t_w = 5, 200, 3000, 96          # no tile multiple is required
+    cfg = AlignConfig(k=k)
+    d = _rescore_inputs(card, R, L, T, t_w, k, seed=k)
+    before = [kern.launches for kern in cuda_rescore.KERNELS]
+
+    # K3: integer work, equal
+    rng = np.random.default_rng(1)
+    path = np.cumsum(rng.random((R, T)) < 0.1, axis=1).astype(np.int32)
+    t_len = np.asarray([T, 1, 0, T // 2, T - 7], np.int32)
+    path_t = torch.from_numpy(path).to(card)
+    t_len_t = torch.from_numpy(t_len).to(card)
+    cnt = cuda_rescore.path_counts(path_t, 384, t_len_t)
+    assert torch.equal(cnt, cuda_rescore.path_counts_plain(path_t, 384, t_len_t))
+
+    # K4: a gather, equal; without the slab rule, and with it on a wide S
+    xs = cuda_rescore.shear_gather(d["x"], d["S"], t_w, slab=False)
+    assert torch.equal(xs, cuda_rescore.shear_gather_plain(d["x"], d["S"], t_w,
+                                                           slab=False))
+    S_slab = torch.nn.functional.pad(d["S"], (0, 56), mode="replicate").contiguous()
+    xs_slab = cuda_rescore.shear_gather(d["x"], S_slab, t_w, span=256)
+    p_slab = cuda_rescore.shear_gather_plain(d["x"], S_slab, t_w, span=256)
+    assert torch.equal(xs_slab, p_slab)
+    assert bool((p_slab == 0).all(dim=0).any()) and bool((p_slab != 0).any())
+
+    # K5 / K6: the same operations in the same order (-fmad=false)
+    args = (xs, d["W"], d["kk"], d["codes"])
+    got = cuda_rescore.rescore_fill_tab(*args, d["woff"], d["tab"], cfg, t_w)
+    want = cuda_rescore.rescore_fill_tab_plain(*args, d["woff"], d["tab"], cfg, t_w)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+    got = cuda_rescore.rescore_fill(xs, d["em"], d["mu"], d["iv"], d["W"], d["kk"],
+                                    d["codes"], cfg, t_w)
+    want = cuda_rescore.rescore_fill_plain(xs, d["em"], d["mu"], d["iv"], d["W"],
+                                           d["kk"], d["codes"], cfg, t_w)
+    live = want.abs() < 1e20                 # dead slots: ~-1e30 on both sides
+    assert torch.equal(live, got.abs() < 1e20)
+    assert float(((got - want).abs() * live).max()) <= 1e-4
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in cuda_rescore.KERNELS] == [
+        b + n for b, n in zip(before, (1, 2, 1, 1))]
+    with pytest.raises(ValueError, match="leave the table"):
+        cuda_rescore.rescore_fill_tab(*args, d["woff"] + 1, d["tab"], cfg, t_w)
+
+
+def test_a_cpu_run_launches_no_kernel(card):
+    from nadavca_tpu_torch.ops import cuda_rescore
+
+    d = _rescore_inputs(torch.device("cpu"), 2, 128, 2600, 32, 6, seed=0)
+    before = [kern.launches for kern in cuda_dp.KERNELS + cuda_rescore.KERNELS]
+    xs = cuda_rescore.shear_gather(d["x"], d["S"], 32)
+    cuda_rescore.rescore_fill_tab(xs, d["W"].clamp(max=32), d["kk"], d["codes"],
+                                  d["woff"], d["tab"], AlignConfig(), 32)
+    assert [kern.launches for kern in cuda_dp.KERNELS + cuda_rescore.KERNELS] == before

@@ -49,14 +49,37 @@ def test_import_and_exports():
 
 
 def test_no_jax_and_nothing_of_the_jax_package():
-    checked = 0
+    checked = set()
     for path in _python_sources():
         roots = _imported_roots(path)
         assert "jax" not in roots, f"{path} imports jax"
         assert "jaxlib" not in roots, f"{path} imports jaxlib"
         assert "nadavca_tpu" not in roots, f"{path} imports nadavca_tpu"
-        checked += 1
-    assert checked >= 15
+        checked.add(os.path.relpath(path, REPO))
+    assert len(checked) >= 17
+    for rel in ("nadavca_tpu_torch/ops/subst_tables.py",
+                "nadavca_tpu_torch/ops/cuda_rescore.py",
+                "nadavca_tpu_torch/ops/cuda_dp.py",
+                "nadavca_tpu_torch/convert.py", "chip_smoke.py"):
+        assert rel in checked, rel
+
+
+def test_every_kernel_source_has_a_declared_entry_point():
+    """Each ``csrc/*.cu`` exports what ``kernel_build._declare`` binds, so a
+    new source cannot be left without its wrapper."""
+    import re
+
+    from nadavca_tpu_torch.utils import kernel_build
+
+    exported = set()
+    for src in kernel_build.sources():
+        exported.update(re.findall(r"NADAVCA_EXPORT\s+[\w\s\*]+?\b(nadavca_\w+)\s*\(",
+                                   open(src).read()))
+    declared = set(re.findall(r"lib\.(nadavca_\w+)\.argtypes",
+                              open(kernel_build.__file__).read()))
+    assert exported == declared and len(exported) == 8, (exported ^ declared)
+    names = {os.path.basename(s) for s in kernel_build.sources()}
+    assert {"path_counts.cu", "shear_gather.cu", "rescore.cu"} <= names
 
 
 def test_default_model_and_config_match_the_jax_package():

@@ -9,9 +9,14 @@ It builds the CUDA kernels from ``nadavca_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version on the card, drives the port's main path —
 the default configuration: reads → banded Viterbi → local re-DP rescore with
 genome tables → SNP calls — through the public ``api`` at a realistic batch
-size, checks the result, and prints one JSON line per phase. Two further paths
-run at a smaller depth: ``snp_rescore="fixed"`` (the closed-form rescore) and
-the local rescore without genome tables. The last line is
+size, checks the result, and prints one JSON line per phase. Then the same
+entry points with the skip transition (``use_skip=True, log_p_skip=-4.6``) on
+reads simulated with pore skips, at the same size: the skip fill with two
+decision planes and the two-plane backtrack. Further paths run at a smaller
+depth: ``dp_pair_step=True`` (the two-sample fill), the joint refiner
+(``snp_joint_rescore``, with and without ``snp_joint_skip``),
+``snp_rescore="fixed"`` (the closed-form rescore) and the local rescore
+without genome tables. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
 0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
 cuts every size (for a quick look, not for numbers), ``--profile`` adds a
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 import nadavca_tpu_torch as nt
-from nadavca_tpu_torch import api, call as callmod, pipeline
+from nadavca_tpu_torch import api, call as callmod, joint, pipeline
 from nadavca_tpu_torch.genome import Contig, Genome
 from nadavca_tpu_torch.io import fast5 as fast5mod
 from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
@@ -55,6 +60,15 @@ KERNEL_INFO = {
     "backtrack": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/backtrack.cu",
         replaces="nadavca_tpu/ops/pallas_dp.py:676"),
+    "viterbi_fill_skip": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/viterbi_fill.cu",
+        replaces="nadavca_tpu/ops/pallas_dp.py:293"),
+    "viterbi_fill_pair": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/viterbi_fill_pair.cu",
+        replaces="nadavca_tpu/ops/pallas_dp.py:79"),
+    "backtrack_skip": dict(
+        route="cuda", source="nadavca_tpu_torch/csrc/backtrack.cu",
+        replaces="nadavca_tpu/ops/pallas_dp.py:717"),
     "path_counts": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/path_counts.cu",
         replaces="nadavca_tpu/ops/pallas_rescore.py:35"),
@@ -72,6 +86,9 @@ KERNEL_INFO = {
 DEVICE_FUNCTION = {
     "band_gather": "band_gather_kernel", "viterbi_fill": "viterbi_fill_kernel",
     "backtrack": "backtrack_kernel", "path_counts": "path_counts_kernel",
+    "viterbi_fill_skip": "viterbi_fill_skip_kernel",
+    "viterbi_fill_pair": "viterbi_fill_pair_kernel",
+    "backtrack_skip": "backtrack_skip_kernel",
     "shear_gather": "shear_gather_kernel", "rescore_fill_tab": "rescore_tab_kernel",
     "rescore_fill": "rescore_kernel<",
 }
@@ -83,6 +100,9 @@ RESCORE_ATOL, RESCORE_RTOL = 1e-3, 1e-5
 # share of the planted SNPs the default caller must find on the smoke world
 # (information beyond that: recall and precision are printed)
 MIN_RECALL = 0.5
+# the skip configuration of this slice, and the pore-skip rate of its reads
+SKIP_FIELDS = dict(use_skip=True, log_p_skip=-4.6)
+SKIP_PROB = 0.08
 
 
 def reset_launches() -> None:
@@ -127,9 +147,10 @@ def wall_ms(fn) -> float:
 
 # ------------------------------------------------------------------ the world
 def make_world(seed: int, genome_len: int, n_snps: int, n_reads: int,
-               read_len: int):
+               read_len: int, skip_prob: float = 0.0):
     """Simulated reads of a sample genome, and a reference that differs from
-    it at ``n_snps`` planted positions (the caller must find those)."""
+    it at ``n_snps`` planted positions (the caller must find those). With
+    ``skip_prob`` a position emits no sample with that probability."""
     rng = np.random.default_rng(seed)
     model = nt.default_model()
     sample = random_genome(rng, length=genome_len)
@@ -143,7 +164,8 @@ def make_world(seed: int, genome_len: int, n_snps: int, n_reads: int,
         truth[p] = "ACGT"[orig]                 # the sample's base = the alt to call
     reference = Genome([Contig(contig.name, codes)])
     reads = [simulate_read(sample, contig.name, model, rng, read_len=read_len,
-                           read_id=f"sim{i:05d}") for i in range(n_reads)]
+                           read_id=f"sim{i:05d}", skip_prob=skip_prob)
+             for i in range(n_reads)]
     return model, reference, reads, truth
 
 
@@ -197,58 +219,121 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
     # 128-step chunk (the two sides run the same operations, but logf and the
     # order inside the row maximum may differ in the last bit)
     fill_args = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"], cfg)
-    dec, v_fin, acc = cuda_dp.viterbi_fill(*fill_args)
+    # 2 mul + 2 add (emission), add, compare, max, add for each live cell
+    out["viterbi_fill"], decs, v_fin, acc = check_fill(
+        tag, "viterbi_fill", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_plain,
+        fill_args, batch, ops_per_cell=8, reps=reps)
+
+    # --- backtrack: an integer walk over the same bits, so exact
+    out["backtrack"], _ = check_backtrack(tag, "backtrack", decs, v_fin, acc, a, C, reps)
+    return out
+
+
+def check_fill(tag, name, wrapper, plain, fill_args, batch, ops_per_cell, reps):
+    """One fill wrapper against its plain version: every plane of decision
+    words equal, V and acc within float32 rounding. Returns (numbers, decs, V,
+    acc) of the kernel."""
+    x, cfg = fill_args[0], fill_args[-1]
+    R, T = x.shape
+    B, n_chunks = cfg.band_width, T // cfg.signal_chunk
+    decs, v_fin, acc = wrapper(*fill_args)
     sync()
-    t0 = time.perf_counter()
-    p_dec, p_v, p_acc = cuda_dp.viterbi_fill_plain(*fill_args)
-    sync()
-    plain_fill_ms = (time.perf_counter() - t0) * 1e3
-    n_diff = int((dec != p_dec).sum())
-    assert n_diff == 0, f"{tag}: viterbi_fill: {n_diff} decision words differ"
+    (p_decs, p_v, p_acc), plain_ms = timed(lambda: plain(*fill_args))
+    assert len(decs) == len(p_decs)
+    for p, (dec, p_dec) in enumerate(zip(decs, p_decs)):
+        n_diff = int((dec != p_dec).sum())
+        assert n_diff == 0, f"{tag}: {name}: {n_diff} words of plane {p} differ"
     live_v = p_v > banded_dp.NEG_INF / 2
     assert bool((live_v == (v_fin > banded_dp.NEG_INF / 2)).all())
     err_v = float(((v_fin - p_v).abs() * live_v).max())
     err_acc = float((acc - p_acc).abs().max())
     tol_acc = 1e-3 + 1e-5 * float(p_acc.abs().max())
-    assert err_v <= 1e-3 and err_acc <= tol_acc, (tag, err_v, err_acc, tol_acc)
+    assert err_v <= 1e-3 and err_acc <= tol_acc, (tag, name, err_v, err_acc, tol_acc)
     live_steps = int(batch.t_len.astype(np.int64).sum())
-    ops = 8 * live_steps * B          # 2 mul + 2 add (emission), add, compare, max, add
     nbytes = (R * T * 4 + 2 * n_chunks * R * B * 4 + 2 * R * n_chunks * 4
-              + 2 * R * 4 + (T // 32) * R * B * 4 + R * B * 4 + R * 4)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    out["viterbi_fill"] = dict(
+              + 2 * R * 4 + len(decs) * (T // 32) * R * B * 4 + R * B * 4 + R * 4)
+    nums = dict(
         max_abs_err=max(err_v, err_acc),
-        ms=event_ms(lambda: cuda_dp.viterbi_fill(*fill_args), reps),
-        plain_ms=plain_fill_ms, library_ms=None,
-        bound_ms=max(by_bytes, by_ops),
-        bound_by="bytes" if by_bytes >= by_ops else "operations",
-        bytes=nbytes, operations=ops, serial_steps=int(batch.t_len.max()))
+        ms=event_ms(lambda: wrapper(*fill_args), reps),
+        plain_ms=plain_ms, library_ms=None,
+        **bound(nbytes, ops_per_cell * live_steps * B),
+        serial_steps=int(batch.t_len.max()), planes=len(decs))
+    return nums, decs, v_fin, acc
 
-    # --- backtrack: an integer walk over the same bits, so exact
+
+def check_backtrack(tag, name, decs, v_fin, acc, a, C, reps):
+    """The walk over ``decs`` (one or two planes) against its plain version:
+    an integer walk over the same bits, so the paths are equal. Returns
+    (numbers, path)."""
+    Tw, R, B = decs[0].shape
+    T = Tw * 32
+    n_chunks = T // C
     j_end, _ = cuda_dp.final_slot_and_score(v_fin, acc, a["lo"][:, -1], a["n_ref"])
-    path = cuda_dp.backtrack(dec, a["lo"], a["delta"], j_end, C)
+    path = cuda_dp.backtrack(decs, a["lo"], a["delta"], j_end, C)
     sync()
-    t0 = time.perf_counter()
-    p_path = cuda_dp.backtrack_plain(dec, a["lo"], a["delta"], j_end, C)
-    sync()
-    plain_bt_ms = (time.perf_counter() - t0) * 1e3
+    p_path, plain_ms = timed(
+        lambda: cuda_dp.backtrack_plain(decs, a["lo"], a["delta"], j_end, C))
     n_diff = int((path != p_path).sum())
-    assert n_diff == 0, f"{tag}: backtrack: {n_diff} path entries differ"
-    # what this run's data needs: one decision word per (word row, visited
-    # slot) along each path, the band tables, and the path written once
+    assert n_diff == 0, f"{tag}: {name}: {n_diff} path entries differ"
+    # what this run's data needs: one decision word per plane and (word row,
+    # visited slot) along each path, the band tables, and the path written once
     lo_rep = torch.repeat_interleave(a["lo"], C, dim=1).long()
     key = (torch.arange(T, device="cuda")[None, :] // 32) * B + (path.long() - lo_rep)
     words = int((key[:, 1:] != key[:, :-1]).sum()) + R
-    nbytes = words * 4 + 2 * R * n_chunks * 4 + R * 4 + R * T * 4
-    ops = 4 * R * T                   # shift, mask, add, subtract per step
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    out["backtrack"] = dict(
+    nbytes = len(decs) * words * 4 + 2 * R * n_chunks * 4 + R * 4 + R * T * 4
+    # shift, mask, add, subtract per step and plane
+    nums = dict(
         max_abs_err=0.0,
-        ms=event_ms(lambda: cuda_dp.backtrack(dec, a["lo"], a["delta"], j_end, C), reps),
-        plain_ms=plain_bt_ms, library_ms=None,
-        bound_ms=max(by_bytes, by_ops),
-        bound_by="bytes" if by_bytes >= by_ops else "operations",
-        bytes=nbytes, operations=ops, serial_steps=T)
+        ms=event_ms(lambda: cuda_dp.backtrack(decs, a["lo"], a["delta"], j_end, C), reps),
+        plain_ms=plain_ms, library_ms=None,
+        **bound(nbytes, 4 * len(decs) * R * T), serial_steps=T, planes=len(decs))
+    return nums, path
+
+
+def count_skips(path, t_len) -> int:
+    """Advance-by-2 steps among the live samples of a batch of paths."""
+    T = path.shape[1]
+    live = torch.arange(1, T, device=path.device)[None, :] < t_len[:, None]
+    return int((((path[:, 1:] - path[:, :-1]) == 2) & live).sum())
+
+
+def check_skip_kernels(tag: str, batch, a, cfg, reps: int):
+    """The skip fill (two planes), the two-plane backtrack and the two-sample
+    fill against their plain versions on the card, at this batch's shapes.
+    ``cfg`` is the skip configuration; the two-sample fill runs the same
+    batch without skip. Returns {kernel name: numbers}."""
+    B, C = cfg.band_width, cfg.signal_chunk
+    out = {}
+    mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
+    args = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"])
+    # 15 operations per live cell, the TPU launcher's own count with two
+    # planes: emission 4, three transition adds, two maxima, two compares,
+    # the and-not, the final add, two pack updates
+    out["viterbi_fill_skip"], decs, v_fin, acc = check_fill(
+        tag, "viterbi_fill_skip", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_plain,
+        args + (cfg,), batch, ops_per_cell=15, reps=reps)
+    assert len(decs) == 2 and not bool((decs[0] & decs[1]).any())
+    out["backtrack_skip"], path = check_backtrack(
+        tag, "backtrack_skip", decs, v_fin, acc, a, C, reps)
+    n_skips = count_skips(path, a["t_len"])
+    assert n_skips > 0, f"{tag}: the skip paths hold no advance-by-2 step"
+    out["backtrack_skip"]["advance_by_2_steps"] = n_skips
+    del decs, path
+
+    cfg_pair = nt.AlignConfig(band_width=B, dp_pair_step=True)
+    # per pair: three emissions (12), K0 K1 K2 (4), three sums, two maxima,
+    # two compares, one add (8): 12 for each live cell
+    out["viterbi_fill_pair"], decs, v_fin, acc = check_fill(
+        tag, "viterbi_fill_pair", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_pair_plain,
+        args + (cfg_pair,), batch, ops_per_cell=12, reps=reps)
+    assert len(decs) == 1
+    # single-step and two-sample fill in turns on the same inputs
+    cfg_single = nt.AlignConfig(band_width=B)
+    turns = []
+    for c in (cfg_single, cfg_pair, cfg_pair, cfg_single):
+        turns.append(event_ms(lambda: cuda_dp.viterbi_fill(*args, c), reps))
+    out["viterbi_fill_pair"]["single_step_ms_in_turns"] = [turns[0], turns[3]]
+    out["viterbi_fill_pair"]["pair_ms_in_turns"] = [turns[1], turns[2]]
     return out
 
 
@@ -437,7 +522,8 @@ def check_argmax_tie() -> None:
     assert score.tolist()[:3] == [1.5, 2.0, 0.25]
 
 
-def tie_only_differences(tag, path_a, path_b, live, mu, sigma) -> int:
+def tie_only_differences(tag, path_a, path_b, live, mu, sigma,
+                         max_share: float = 1e-4) -> int:
     """Number of live samples on which two paths differ, after checking that
     every such difference is a broken tie.
 
@@ -459,7 +545,7 @@ def tie_only_differences(tag, path_a, path_b, live, mu, sigma) -> int:
     assert bool((same_level & near).all()), (
         f"{tag}: {int((~(same_level & near)).sum())} of {n} differing path "
         "entries are not ties between positions with identical levels")
-    assert n <= 1e-4 * int(live.sum()), (tag, n, int(live.sum()))
+    assert n <= max_share * int(live.sum()), (tag, n, int(live.sum()))
     return n
 
 
@@ -488,7 +574,9 @@ def run_api(reference, raws, fast5_dir, cfg, model, device, batch_reads):
 
 
 def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
-    """Milliseconds of each stage of one batch of the default path on the card."""
+    """Milliseconds of each stage of one batch of the kernel path with the
+    local rescore on the card, under ``cfg`` (fill and backtrack are the
+    variants ``cfg`` selects)."""
     group = sorted(records, key=lambda r: len(r.signal))[-batch_reads:]
     ids = {r.read_id for r in group}
     t0 = time.perf_counter()
@@ -509,11 +597,11 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
         bands=cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)))
     split["viterbi_fill"] = wall_ms(lambda: st.update(fill=cuda_dp.viterbi_fill(
         a["x"], a["t_len"], *st["bands"], a["lo"], a["delta"], a["n_ref"], cfg)))
-    dec, v_fin, acc = st["fill"]
+    decs, v_fin, acc = st["fill"]
     split["final_slot"] = wall_ms(lambda: st.update(end=cuda_dp.final_slot_and_score(
         v_fin, acc, a["lo"][:, -1], a["n_ref"])))
     split["backtrack"] = wall_ms(lambda: st.update(path=cuda_dp.backtrack(
-        dec, a["lo"], a["delta"], st["end"][0], C)))
+        decs, a["lo"], a["delta"], st["end"][0], C)))
     path = st["path"]
     # the local rescore as a whole, then its three kernels on the same inputs;
     # what is left is the tensor code between them
@@ -551,7 +639,7 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
     callmod.call_snps(acc_g, cov_g, reference.contigs[0].codes,
                       reference.contigs[0].name, cfg, min_coverage=2, votes=votes_g)
     split["call"] = (time.perf_counter() - t0) * 1e3
-    return batch, a, path, st["ll"], split
+    return batch, a, path, st["end"][1], st["ll"], split
 
 
 def profile_main_path(reference, raws, cfg, model, batch_reads,
@@ -585,25 +673,250 @@ def profile_main_path(reference, raws, cfg, model, batch_reads,
                               for k, ms, c in rows[:16]]}
 
 
-def assert_agree(tag, card, cpu, ll_rtol, ll_atol) -> None:
+def path_of(aln, n_samples: int) -> np.ndarray:
+    """The per-sample window position of an alignment, rebuilt from its
+    segments (-1 where no position holds the sample)."""
+    p = np.full(n_samples, -1, np.int64)
+    for pos in np.nonzero(aln.seg_start >= 0)[0]:
+        p[aln.seg_start[pos]:aln.seg_end[pos]] = pos
+    return p
+
+
+def assert_agree(tag, card, cpu, ll_rtol, ll_atol, levels=None) -> int:
     """(calls, alignments) of the same entry points on the card and on the
     CPU (plain versions): calls equal, segments equal, scores and base
-    log-likelihoods within tolerance."""
+    log-likelihoods within tolerance.
+
+    With ``levels`` ({read id: (mu, sigma)} of each read's window) a read's
+    segments may differ where a sample sits on one or the other of two
+    positions, at most 2 apart, with identical levels: a tie in exact
+    arithmetic, which the last bit of the card's ``logf`` against the CPU's
+    ``log`` can break either way. Such a read's base log-likelihoods are not
+    compared (its local windows differ by that sample). Returns the number of
+    such reads; any other difference fails."""
     (calls, alns), (c_calls, c_alns) = card, cpu
     assert len(alns) == len(c_alns) > 0, (tag, len(alns), len(c_alns))
+    n_tied = 0
     for g, c in zip(alns, c_alns):
         assert g.read_id == c.read_id
         assert np.isfinite(g.score) and np.isfinite(g.base_loglik).all()
-        # segments are the path on live samples: equal
-        assert np.array_equal(g.seg_start, c.seg_start), (tag, g.read_id)
-        assert np.array_equal(g.seg_end, c.seg_end), (tag, g.read_id)
         assert abs(g.score - c.score) <= 2e-3 * max(1.0, abs(c.score)), (tag, g.read_id)
+        # segments are the path on live samples: equal
+        same = (np.array_equal(g.seg_start, c.seg_start)
+                and np.array_equal(g.seg_end, c.seg_end))
+        if not same and levels is not None:
+            n = int(max(g.seg_end.max(), c.seg_end.max()))
+            pa, pb = path_of(g, n), path_of(c, n)
+            t = np.nonzero(pa != pb)[0]
+            mu, sigma = levels[g.read_id]
+            assert (pa[t] >= 0).all() and (pb[t] >= 0).all(), (tag, g.read_id)
+            tie = ((mu[pa[t]] == mu[pb[t]]) & (sigma[pa[t]] == sigma[pb[t]])
+                   & (np.abs(pa[t] - pb[t]) <= 2))
+            assert tie.all(), (tag, g.read_id, int((~tie).sum()), len(t))
+            n_tied += 1
+            continue
+        assert same, (tag, g.read_id)
         np.testing.assert_allclose(g.base_loglik, c.base_loglik, rtol=ll_rtol,
                                    atol=ll_atol, err_msg=f"{tag}: {g.read_id}")
     key = lambda c: (c.contig, c.position, c.ref_base, c.alt_base, c.coverage)
     assert [key(c) for c in calls] == [key(c) for c in c_calls], tag
     np.testing.assert_allclose([c.probability for c in calls],
                                [c.probability for c in c_calls], atol=1e-5)
+    return n_tied
+
+
+def expect_launches(tag, got, per_kernel) -> None:
+    """Every kernel's count is what the path must give it; a kernel not named
+    in ``per_kernel`` must not have been launched at all."""
+    for name, n in got.items():
+        want = per_kernel.get(name, 0)
+        assert n == want, (tag, name, n, want, got)
+
+
+def scores_close(tag, got, want, n) -> float:
+    """Largest score difference over the first n reads, within 2e-3 relative to
+    the score's size (float32 sums of ~1e4 terms)."""
+    diff = (got[:n] - want[:n]).abs()
+    tol = 2e-3 * want[:n].abs().clamp(min=1.0)
+    assert bool((diff <= tol).all()), (tag, float(diff.max()))
+    return float(diff.max())
+
+
+def skip_phase(seed, model, n_reads, read_len, genome_len, batch_reads) -> dict:
+    """This slice's path at full width: the skip configuration through the
+    public entry points, on reads simulated with pore skips."""
+    cfg = nt.AlignConfig(**SKIP_FIELDS)
+    t0 = time.perf_counter()
+    _, reference, reads, truth = make_world(seed + 2, genome_len, 20, n_reads,
+                                            read_len, skip_prob=SKIP_PROB)
+    raws, records = records_of(reads, reference, model, cfg)
+    world_s = time.perf_counter() - t0
+    n_batches = -(-len(records) // batch_reads)
+    reset_launches()
+    calls, alns, snp_s, aln_s = run_api(reference, raws, None, cfg, model, "cuda",
+                                        batch_reads)
+    launches = read_launches()
+    expect_launches("skip", launches, {k: 2 * n_batches for k in (
+        "band_gather", "viterbi_fill_skip", "backtrack_skip", "path_counts",
+        "shear_gather", "rescore_fill_tab")})
+    assert len(alns) >= 0.9 * len(reads), (len(alns), len(reads))
+
+    # (a) the same entry points on the CPU, where the plain versions run
+    t0 = time.perf_counter()
+    cpu = run_api(reference, raws, None, cfg, model, "cpu", batch_reads)[:2]
+    assert read_launches() == launches, "a CPU run must not launch a kernel"
+    levels = {r.read_id: (r.mu, r.sigma) for r in records}
+    n_tied = assert_agree("skip", (calls, alns), cpu, RESCORE_RTOL, RESCORE_ATOL,
+                          levels=levels)
+    assert n_tied <= 0.05 * len(alns), (n_tied, len(alns))
+    del cpu
+    cpu_compare_s = time.perf_counter() - t0
+
+    # (b) one batch stage by stage, and the scan twin under skip on the card
+    tables = build_subst_tables(reference, model, device="cuda")
+    batch, a, path, score, base_ll, split = stage_split(
+        records, reference, raws, model, cfg, batch_reads, tables)
+    n = batch.n_reads
+    T = batch.x.shape[1]
+    live = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
+    live[n:] = False
+    step = (path[:, 1:] - path[:, :-1])[live[:, 1:]]
+    assert int(step.min()) >= 0 and int(step.max()) == 2, (int(step.min()), int(step.max()))
+    n_skips = count_skips(path[:n], a["t_len"][:n])
+    scan = pipeline.align_batch(
+        batch, model, nt.AlignConfig(snp_rescore="fixed", **SKIP_FIELDS),
+        backend="scan", device="cuda")
+    # under skip the twin's emission is the Gaussian log-density written out,
+    # not the kernel's em_const - d*d*inv2v, so more ties fall the other way
+    n_tie = tie_only_differences("scan twin under skip", path, scan["path"], live,
+                                 a["mu"], a["sigma"], max_share=1e-3)
+    score_diff = scores_close("scan twin under skip", score, scan["score"], n)
+    del scan, base_ll
+
+    called = {c.position: c.alt_base for c in calls}
+    tp = sum(1 for p, b in truth.items() if called.get(p) == b)
+    recall = tp / max(len(truth), 1)
+    assert recall >= MIN_RECALL, f"skip: only {tp} of {len(truth)} planted SNPs were called"
+    return {"phase": "skip_path",
+            "config": "AlignConfig(use_skip=True, log_p_skip=-4.6)",
+            "skip_prob": SKIP_PROB, "reads": len(reads), "aligned": len(alns),
+            "batches": n_batches, "batch_shape": list(batch.x.shape),
+            "window_shape": list(batch.codes.shape),
+            "world_seconds": round(world_s, 3),
+            "call_snps_seconds": snp_s, "align_signal_seconds": aln_s,
+            "reads_per_s_call_snps": len(alns) / snp_s,
+            "launches": launches, "stage_ms_one_batch": split,
+            "device_ms_one_batch": sum(split[k] for k in DEVICE_STAGES),
+            "advance_by_2_steps_one_batch": n_skips,
+            "live_samples_one_batch": int(live.sum()),
+            "calls": len(calls), "planted": len(truth), "true_positive": tp,
+            "recall": recall, "precision": tp / max(len(calls), 1),
+            "cpu_plain_agrees_reads": len(alns) - n_tied,
+            "cpu_plain_reads_differing_by_ties_only": n_tied,
+            "cpu_compare_seconds": cpu_compare_s,
+            "scan_on_card_tie_differences": n_tie,
+            "scan_on_card_max_score_diff": score_diff}
+
+
+def pair_phase(reference, sub, model, batch_reads) -> dict:
+    """``dp_pair_step=True`` on one batch: the two-sample fill through the
+    entry point, and its result against the single-step kernel's."""
+    cfg, cfg_pair = nt.AlignConfig(), nt.AlignConfig(dp_pair_step=True)
+    kw = dict(model=model, backend="cuda", batch_reads=batch_reads, prep="python",
+              device="cuda")
+    reset_launches()
+    p_alns = api.align_reads(reference, sub, config=cfg_pair, **kw)
+    sync()
+    launches = read_launches()
+    n_b = -(-len(p_alns) // batch_reads)
+    expect_launches("pair", launches, {k: n_b for k in (
+        "band_gather", "viterbi_fill_pair", "backtrack", "path_counts",
+        "shear_gather", "rescore_fill_tab")})
+    s_alns = api.align_reads(reference, sub, config=cfg, **kw)
+    assert [a.read_id for a in p_alns] == [a.read_id for a in s_alns]
+    for p, q in zip(p_alns, s_alns):
+        assert np.isfinite(p.base_loglik).all()
+        assert abs(p.score - q.score) <= 2e-3 * max(1.0, abs(q.score)), p.read_id
+    # paths: both fills carry the same values, but the two-sample body's
+    # per-sample bits do not always walk the optimal path (ROADMAP.md,
+    # Queue 3), so the differences are counted and bounded, not required to
+    # be ties
+    records = api._preprocess(sub, reference, model, cfg, prep="python")
+    batch = pipeline.assemble_batch(
+        sorted(records, key=lambda r: len(r.signal))[-batch_reads:], model, cfg)
+    a = pipeline.stage_batch(batch, model, cfg, "cuda", device="cuda")
+    dp = (a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"], a["delta"])
+    r_pair, _ = cuda_dp.cuda_viterbi_batch(*dp, cfg_pair)
+    r_single, _ = cuda_dp.cuda_viterbi_batch(*dp, cfg)
+    n = batch.n_reads
+    live = torch.arange(batch.x.shape[1], device="cuda")[None, :] < a["t_len"][:, None]
+    live[n:] = False
+    diff = (r_pair.path != r_single.path) & live
+    n_diff, n_live = int(diff.sum()), int(live.sum())
+    assert n_diff <= 5e-3 * n_live, (n_diff, n_live)
+    r, t = torch.nonzero(diff, as_tuple=True)
+    pa, pb = r_pair.path[r, t].long(), r_single.path[r, t].long()
+    n_tie = int(((a["mu"][r, pa] == a["mu"][r, pb])
+                 & (a["sigma"][r, pa] == a["sigma"][r, pb])).sum())
+    return {"reads": len(sub), "launches": launches,
+            "path_entries_differing_from_single_step": n_diff,
+            "of_which_between_identical_levels": n_tie, "live_samples": n_live,
+            "max_score_diff": scores_close("pair", r_pair.score, r_single.score, n)}
+
+
+def joint_phase(reference, sub, model, batch_reads) -> dict:
+    """The joint refiner through ``call_snps_reads`` on the card, and its pass
+    alone on the card and on the CPU from the same accumulators and records."""
+    key = lambda c: (c.contig, c.position, c.ref_base, c.alt_base, c.coverage)
+    dev = torch.device("cuda")
+    out = {}
+    for name, fields in (("joint", dict(snp_joint_rescore=True)),
+                         ("joint_skip", dict(snp_joint_rescore=True,
+                                             snp_joint_skip=True))):
+        cfg = nt.AlignConfig(**fields)
+        sync()
+        t0 = time.perf_counter()
+        calls = api.call_snps_reads(reference, sub, config=cfg, model=model,
+                                    backend="cuda", batch_reads=batch_reads,
+                                    prep="python", device="cuda")
+        sync()
+        api_s = time.perf_counter() - t0
+        records, accs = api._accumulate_reads(reference, sub, cfg, model, "cuda",
+                                              batch_reads, 1, "python", dev)
+        contig = reference.contigs[0]
+        acc, cov, votes = (t.cpu().numpy() for t in accs[contig.name])
+        metas = [joint.ReadMeta(r.read_id, r.anchor.contig, int(r.anchor.ref_start),
+                                len(r.window_codes), int(r.anchor.strand))
+                 for r in records]
+        by_id = {r.read_id: r for r in records}
+        plan = joint.cluster_plan(acc, cov, votes, contig.codes, cfg, min_coverage=2)
+        assert plan, f"{name}: no candidate cluster to refine"
+        seconds = {}
+        lists = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            lists[where] = joint.refine_contig_calls(
+                acc, cov, votes, contig.codes, contig.name, cfg, model, metas, by_id,
+                min_coverage=2, device=where)
+            if where == "cuda":
+                sync()
+            seconds[where] = time.perf_counter() - t0
+        assert [key(c) for c in lists["cuda"]] == [key(c) for c in lists["cpu"]], name
+        assert [key(c) for c in calls] == [key(c) for c in lists["cuda"]], name
+        np.testing.assert_allclose([c.probability for c in lists["cuda"]],
+                                   [c.probability for c in lists["cpu"]], atol=1e-4)
+        out[name] = {"reads": len(sub), "clusters": len(plan),
+                     "hypothesis_rows": sum(
+                         (1 + len(c.hyps)) * len(joint.reads_covering(c.span, metas, cfg.k))
+                         for c in plan),
+                     "calls": len(calls), "call_snps_seconds": api_s,
+                     "joint_pass_seconds_card": seconds["cuda"],
+                     "joint_pass_seconds_cpu": seconds["cpu"]}
+    return out
+
+
+DEVICE_STAGES = ("h2d", "band_gather", "viterbi_fill", "final_slot", "backtrack",
+                 "rescore_total", "scatter")
 
 
 def main() -> int:
@@ -642,16 +955,18 @@ def main() -> int:
     assert cfg.snp_rescore == "local"
     cfg_fixed = nt.AlignConfig(snp_rescore="fixed")
     cfg_wide = nt.AlignConfig(snp_rescore="fixed", band_width=cfg.band_width_long)
+    cfg_skip = nt.AlignConfig(**SKIP_FIELDS)
+    cfg_skip_wide = nt.AlignConfig(band_width=cfg.band_width_long, **SKIP_FIELDS)
     n_reads, read_len, genome_len, batch_reads = (
         (48, 300, 3000, 32) if small else (512, 1000, 25000, 256))
+    wide_reads, wide_len = (8, 400) if small else (32, 2000)
     t0 = time.perf_counter()
     model, reference, reads, truth = make_world(
         args.seed, genome_len, 20, n_reads, read_len)
     raws, records = records_of(reads, reference, model, cfg)
     world_s = time.perf_counter() - t0
     # long reads for the wide band: ~20k samples each
-    _, ref_w, reads_w, _ = make_world(args.seed + 1, 6000, 0,
-                                      8 if small else 32, 400 if small else 2000)
+    _, ref_w, reads_w, _ = make_world(args.seed + 1, 6000, 0, wide_reads, wide_len)
     _, records_w = records_of(reads_w, ref_w, model, cfg_wide)
     tables, subst_build_ms = timed(
         lambda: build_subst_tables(reference, model, device="cuda"))
@@ -669,16 +984,35 @@ def main() -> int:
     wide_nums = check_kernels("wide", batch_w, a_w, cfg_wide, reps=5)
     check_argmax_tie()
     span = check_span_mask()
+    del a_w, a
+    # the skip fill, the two-plane backtrack and the two-sample fill, on reads
+    # simulated with pore skips, at the same two shapes
+    _, ref_s, reads_s, _ = make_world(args.seed + 3, genome_len, 0, batch_reads,
+                                      read_len, skip_prob=SKIP_PROB)
+    _, records_s = records_of(reads_s, ref_s, model, cfg_skip)
+    batch_s, a_s = staged_batch(records_s, model, cfg_skip)
+    main_nums.update(check_skip_kernels("main, skips", batch_s, a_s, cfg_skip, reps=10))
+    _, ref_sw, reads_sw, _ = make_world(args.seed + 4, 6000, 0, wide_reads, wide_len,
+                                        skip_prob=SKIP_PROB)
+    _, records_sw = records_of(reads_sw, ref_sw, model, cfg_skip_wide)
+    batch_sw, a_sw = staged_batch(records_sw, model, cfg_skip_wide)
+    wide_nums.update(check_skip_kernels("wide, skips", batch_sw, a_sw, cfg_skip_wide,
+                                        reps=5))
     emit({"phase": "kernel_checks", "argmax_first_max": True, **span, "shapes": [
         {"R": b.x.shape[0], "T": b.x.shape[1], "B": c.band_width, "N": b.mu.shape[1],
-         "L": b.codes.shape[1], "t_w": c.snp_local_window, "kernels": nums}
-        for b, c, nums in ((batch, cfg, main_nums), (batch_w, cfg_wide, wide_nums))]})
-    del a_w, batch_w, a
+         "L": b.codes.shape[1], "t_w": c.snp_local_window,
+         "skip_batch_T": bs.x.shape[1], "kernels": nums}
+        for b, bs, c, nums in ((batch, batch_s, cfg, main_nums),
+                               (batch_w, batch_sw, cfg_wide, wide_nums))]})
     if not small:
-        assert batch.x.shape == (256, 11136), batch.x.shape
+        assert batch.x.shape == batch_s.x.shape == (256, 11136), batch.x.shape
         assert batch.codes.shape == (256, 1024), batch.codes.shape
+        assert batch_w.x.shape == batch_sw.x.shape == (32, 22016), batch_sw.x.shape
+    del a_s, a_sw, batch_s, batch_sw, batch_w
 
     # ---- phase 4: the main path — the default configuration through the api
+    local_kernels = ("band_gather", "viterbi_fill", "backtrack", "path_counts",
+                     "shear_gather", "rescore_fill_tab")
     with tempfile.TemporaryDirectory() as tmp:
         fast5_dir = None
         if fast5mod.HAVE_H5PY:
@@ -691,31 +1025,32 @@ def main() -> int:
         calls, alns, snp_s, aln_s = run_api(reference, raws, fast5_dir, cfg, model,
                                             "cuda", batch_reads)
         launches = read_launches()
-        for name, n in launches.items():
-            want = 0 if name == "rescore_fill" else 2 * n_batches
-            assert n == want, (name, n, want)
+        expect_launches("local", launches, {k: 2 * n_batches for k in local_kernels})
         assert len(alns) >= 0.9 * len(reads), (len(alns), len(reads))
 
-        # the result is right: (a) the same calls on the CPU, where every
-        # wrapper runs its plain version, agree; the plain versions repeat the
-        # kernels' operations in the same order
-        t0 = time.perf_counter()
-        cpu = run_api(reference, raws, fast5_dir, cfg, model, "cpu", batch_reads)[:2]
-        assert read_launches() == launches, "a CPU run must not launch a kernel"
-        assert_agree("local", (calls, alns), cpu, RESCORE_RTOL, RESCORE_ATOL)
-        del cpu
-
-    # the fixed path of the first slice, at a smaller depth: one batch's worth
-    # of reads, in memory, on the card and on the CPU
+    # the result is right: (a) the same entry points on the CPU, where every
+    # wrapper runs its plain version, agree; the plain versions repeat the
+    # kernels' operations in the same order. One batch's worth of reads, in
+    # memory: the CPU run is the long part of this script.
     sub = raws[:batch_reads]
+    t0 = time.perf_counter()
+    card_sub = run_api(reference, sub, None, cfg, model, "cuda", batch_reads)[:2]
+    seen = read_launches()
+    assert_agree("local", card_sub,
+                 run_api(reference, sub, None, cfg, model, "cpu", batch_reads)[:2],
+                 RESCORE_RTOL, RESCORE_ATOL)
+    assert read_launches() == seen, "a CPU run must not launch a kernel"
+    del card_sub
+
+    # the fixed path of the first slice, at the same depth, on the card and on
+    # the CPU
     reset_launches()
     f_calls, f_alns = run_api(reference, sub, None, cfg_fixed, model, "cuda",
                               batch_reads)[:2]
     fixed_launches = read_launches()
     n_sub = -(-len(f_alns) // batch_reads)
-    for name, n in fixed_launches.items():      # two entry points
-        want = 2 * n_sub if name in ("band_gather", "viterbi_fill", "backtrack") else 0
-        assert n == want, ("fixed", name, n, want)
+    expect_launches("fixed", fixed_launches, {k: 2 * n_sub for k in (
+        "band_gather", "viterbi_fill", "backtrack")})        # two entry points
     # float32 closed-form terms from statistics summed in float64
     assert_agree("fixed", (f_calls, f_alns),
                  run_api(reference, sub, None, cfg_fixed, model, "cpu", batch_reads)[:2],
@@ -724,8 +1059,8 @@ def main() -> int:
     cpu_compare_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    batch, a, path, base_ll, split = stage_split(records, reference, raws, model, cfg,
-                                                 batch_reads, tables)
+    batch, a, path, _, base_ll, split = stage_split(records, reference, raws, model,
+                                                    cfg, batch_reads, tables)
     split["subst_build_once_per_genome"] = subst_build_ms
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     n = batch.n_reads
@@ -779,8 +1114,9 @@ def main() -> int:
     no_tab = pipeline.align_batch(batch, model, cfg, backend="cuda", device="cuda",
                                   subst=None)
     k6_launches = read_launches()
-    assert k6_launches["rescore_fill"] == 1 and k6_launches["rescore_fill_tab"] == 0, \
-        k6_launches
+    expect_launches("no tables", k6_launches, {k_: 1 for k_ in (
+        "band_gather", "viterbi_fill", "backtrack", "path_counts", "shear_gather",
+        "rescore_fill")})
     assert torch.equal(no_tab["path"], path)
     torch.testing.assert_close(no_tab["base_loglik"][cmp], base_ll[cmp],
                                rtol=1e-5, atol=1e-3)
@@ -793,7 +1129,7 @@ def main() -> int:
     f_called = {c.position: c.alt_base for c in f_calls}
     assert recall >= MIN_RECALL, f"only {tp} of {len(truth)} planted SNPs were called"
     emit({"phase": "main_path", "config": "AlignConfig() (snp_rescore=local)",
-          "ingest": "fast5" if fast5_dir else "memory",
+          "ingest": "fast5" if fast5mod.HAVE_H5PY else "memory",
           "reads": len(reads), "aligned": len(alns), "batches": n_batches,
           "batch_shape": list(batch.x.shape), "window_shape": list(batch.codes.shape),
           "band_width": cfg.band_width, "t_w": cfg.snp_local_window,
@@ -801,18 +1137,23 @@ def main() -> int:
           "call_snps_seconds": snp_s, "align_signal_seconds": aln_s,
           "reads_per_s_call_snps": len(alns) / snp_s,
           "launches": launches, "stage_ms_one_batch": split,
-          "device_ms_one_batch": sum(split[k] for k in (
-              "h2d", "band_gather", "viterbi_fill", "final_slot", "backtrack",
-              "rescore_total", "scatter")),
+          "device_ms_one_batch": sum(split[k] for k in DEVICE_STAGES),
           "peak_device_mb_one_batch": peak_mb,
           "calls": len(calls), "planted": len(truth), "true_positive": tp,
           "recall": recall, "precision": tp / max(len(calls), 1),
-          "cpu_plain_agrees_reads": len(alns), "cpu_compare_seconds": cpu_compare_s,
+          "cpu_plain_agrees_reads": len(f_alns), "cpu_compare_seconds": cpu_compare_s,
           "scan_on_card_tie_differences": n_tie,
           "scan_on_card_live_samples": int(live.sum()),
           "scan_rescore_interior_positions": int(cmp.sum()),
           "span_masked_interior_positions": int((interior & ~span_ok).sum())})
-    emit({"phase": "other_paths",
+    del batch, a, path, base_ll, tables
+
+    # ---- phase 5: this slice's paths
+    skip_out = skip_phase(args.seed, model, n_reads, read_len, genome_len, batch_reads)
+    emit(skip_out)
+    pair_out = pair_phase(reference, sub, model, batch_reads)
+    joint_out = joint_phase(reference, sub, model, batch_reads)
+    emit({"phase": "other_paths", "dp_pair_step": pair_out, **joint_out,
           "fixed": {"reads": len(sub), "launches": fixed_launches,
                     "calls": len(f_calls),
                     "true_positive": sum(1 for p, b in truth.items()
@@ -823,10 +1164,14 @@ def main() -> int:
         emit({"phase": "profile", **profile_main_path(
             reference, raws, cfg, model, batch_reads, snp_s)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    # each kernel's count comes from the path that runs it: K6 from the path
+    # each kernel's count comes from the path that runs it: the skip kernels
+    # from the skip path, the two-sample fill from its own, K6 from the path
     # without genome tables, every other kernel from the main path
-    return finish(smi, main_nums,
-                  {**launches, "rescore_fill": k6_launches["rescore_fill"]})
+    counts = dict(launches, rescore_fill=k6_launches["rescore_fill"],
+                  viterbi_fill_pair=pair_out["launches"]["viterbi_fill_pair"],
+                  **{k_: skip_out["launches"][k_]
+                     for k_ in ("viterbi_fill_skip", "backtrack_skip")})
+    return finish(smi, main_nums, counts)
 
 
 def finish(smi: str, nums: dict, launches: dict) -> int:
@@ -834,10 +1179,12 @@ def finish(smi: str, nums: dict, launches: dict) -> int:
     for name, info in KERNEL_INFO.items():
         k = dict(name=name, **info)
         k["launches"] = launches[name]
+        assert k["launches"] > 0, f"{name} was launched by no path"
         k["ok"] = True        # a kernel that disagreed would have raised above
         k.update({f: nums[name][f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         kernels.append(k)
+    assert len(kernels) == len(ALL_KERNELS) == 10
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

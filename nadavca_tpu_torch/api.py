@@ -3,7 +3,9 @@
 Counterpart of ``nadavca_tpu/api.py`` with the same signatures plus
 ``device`` (default ``"cuda"``; pass ``"cpu"`` to run the plain versions).
 Ingest and anchoring run on the host, reads are padded into bucketed batches,
-and each batch runs the banded Viterbi and the rescore on the device.
+and each batch runs the banded Viterbi and the rescore on the device. With
+``cfg.snp_joint_rescore`` the calls of ``call_snps`` are refined by the joint
+pass (``joint.py``) on the same device.
 
 Each entry point is split into ingest (:func:`_iter_raw`) and a body that
 takes any iterable of :class:`RawRead` (``align_reads``, ``call_snps_reads``),
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from . import call as callmod
+from . import joint
 from .config import AlignConfig, DEFAULT_CONFIG
 from .genome import Genome
 from .io import fast5 as fast5mod
@@ -217,27 +220,12 @@ def align_signal(
         prep=prep, device=device)
 
 
-def call_snps_reads(
-    genome: Genome,
-    raws: Iterable[RawRead],
-    config: Optional[AlignConfig] = None,
-    model: Optional[KmerModel] = None,
-    backend: str = "auto",
-    batch_reads: int = 256,
-    min_coverage: int = 2,
-    workers: int = 1,
-    prep: str = "auto",
-    device="cuda",
-) -> List[callmod.SnpCall]:
-    """Body of :func:`call_snps` over reads already in memory."""
-    cfg = config or DEFAULT_CONFIG
-    check_supported(cfg)
-    if cfg.snp_joint_rescore:
-        raise NotImplementedError(
-            "the joint rescore pass (snp_joint_rescore=True) is not ported yet")
-    model = model or default_model(cfg.k)
+def _accumulate_reads(genome, raws, cfg, model, backend, batch_reads, workers,
+                      prep, dev):
+    """Align every read and scatter its base log-likelihoods into per-contig
+    locus accumulators on ``dev``. Returns (records, {contig: (acc, cov,
+    votes)})."""
     records = _preprocess(raws, genome, model, cfg, workers, prep=prep)
-    dev = torch.device(device)
     subst = _maybe_subst(genome, model, cfg, backend, dev)
     accs = {c.name: callmod.make_accumulators(len(c), with_votes=True, device=dev)
             for c in genome}
@@ -258,7 +246,46 @@ def call_snps_reads(
                 torch.from_numpy(batch.strand[rows_arr]).to(dev),
                 votes=votes, cfg=cfg,
             )
+    return records, accs
+
+
+def call_snps_reads(
+    genome: Genome,
+    raws: Iterable[RawRead],
+    config: Optional[AlignConfig] = None,
+    model: Optional[KmerModel] = None,
+    backend: str = "auto",
+    batch_reads: int = 256,
+    min_coverage: int = 2,
+    workers: int = 1,
+    prep: str = "auto",
+    device="cuda",
+) -> List[callmod.SnpCall]:
+    """Body of :func:`call_snps` over reads already in memory."""
+    cfg = config or DEFAULT_CONFIG
+    check_supported(cfg)
+    model = model or default_model(cfg.k)
+    dev = torch.device(device)
+    records, accs = _accumulate_reads(genome, raws, cfg, model, backend,
+                                      batch_reads, workers, prep, dev)
     calls: List[callmod.SnpCall] = []
+    if cfg.snp_joint_rescore:
+        # the records are still in memory, so the joint pass re-scores the
+        # candidate clusters directly, on the same device
+        records_by_id = {r.read_id: r for r in records}
+        metas_by_contig: dict = {}
+        for r in records:
+            metas_by_contig.setdefault(r.anchor.contig, []).append(
+                joint.ReadMeta(r.read_id, r.anchor.contig,
+                               int(r.anchor.ref_start),
+                               len(r.window_codes), int(r.anchor.strand)))
+        for cname, (acc, cov, votes) in accs.items():
+            calls.extend(joint.refine_contig_calls(
+                acc.cpu().numpy(), cov.cpu().numpy(), votes.cpu().numpy(),
+                genome[cname].codes, cname, cfg, model,
+                metas_by_contig.get(cname, []), records_by_id,
+                min_coverage=min_coverage, device=dev))
+        return calls
     for cname, (acc, cov, votes) in accs.items():
         calls.extend(
             callmod.call_snps(

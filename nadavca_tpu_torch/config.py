@@ -27,7 +27,7 @@ class AlignConfig:
     log_p_stay: float = -0.1054   # log prob of emitting another sample at same position (~0.9)
     log_p_move: float = -2.3026   # log prob of advancing one position (~0.1)
     log_p_skip: float = -1e30     # log prob of skipping a position (disabled by default)
-    use_skip: bool = False        # skip transition (advance by 2); not ported yet
+    use_skip: bool = False        # enable the skip transition (advance by 2)
     # --- SNP calling ---
     snp_prior: float = 0.25       # uniform prior over the 4 bases
     snp_threshold: float = 0.9    # posterior threshold for emitting a call
@@ -40,7 +40,14 @@ class AlignConfig:
     snp_vote_margin: float = 3.0  # per-read margin for an alt "vote"
     snp_min_alt_votes: int = 3    # reads voting alt required for a call
     snp_cluster_prune: bool = True  # suppress weaker calls within k of a stronger one
-    # --- joint adjacent-hypothesis rescore (opt-in; not ported yet, raises) ---
+    # --- joint adjacent-hypothesis rescore (opt-in; see joint.py) ---
+    # candidate clusters are re-scored by full re-alignment of each read's
+    # signal slice under every single-SNP hypothesis near the cluster; a call
+    # moves only when the per-read median prefers the new hypothesis by
+    # snp_joint_repos_margin with at least snp_joint_min_reads covering reads.
+    # snp_joint_skip runs those slice alignments with the skip transition at
+    # snp_joint_log_p_skip; snp_joint_filter_mad > 0 drops reads whose fit is
+    # that many MADs below the cluster median.
     snp_joint_rescore: bool = False
     snp_joint_pad: int = 12
     snp_joint_min_reads: int = 4
@@ -48,6 +55,8 @@ class AlignConfig:
     snp_joint_skip: bool = False
     snp_joint_log_p_skip: float = -3.5
     snp_joint_filter_mad: float = 0.0
+    # "cpu" or "default", validated and kept so YAML files round-trip; the
+    # port's joint pass runs on the device the api call names
     snp_joint_device: str = "cpu"
     # --- batching ---
     # signal-length buckets: ~1.25x geometric steps (128-aligned) bound the
@@ -61,9 +70,13 @@ class AlignConfig:
                                   # kernels themselves take any row count
     adaptive_band_threshold: int = 16384  # signal samples above which the wide band is used
     band_width_long: int = 256    # band width for long reads (adaptive band)
+    kernel_unroll: object = True  # TPU fill-kernel loop unroll: kept so YAML
+                                  # files round-trip, ignored by the port
+    # two samples per serial step of the fill, without skip only: half the
+    # barriers per sample for about twice the float operations. Scores match
+    # the single-step fill to float32 rounding; near-tie decisions can differ.
+    dp_pair_step: bool = False
     # --- kept so YAML files round-trip; ignored by the port ---
-    kernel_unroll: object = True  # TPU fill-kernel loop unroll
-    dp_pair_step: bool = False    # TPU two-sample fill step (not ported yet)
     data_axis: str = "data"       # JAX mesh axis name
     genome_axis: str = "genome"   # JAX mesh axis name
 
@@ -72,6 +85,9 @@ class AlignConfig:
             raise ValueError(f"band_width must be a multiple of 128, got {self.band_width}")
         if self.k < 1:
             raise ValueError("k must be >= 1")
+        if self.snp_joint_device not in ("cpu", "default"):
+            raise ValueError('snp_joint_device must be "cpu" or "default", got '
+                             f"{self.snp_joint_device!r}")
 
     @classmethod
     def from_yaml(cls, path: str, **overrides) -> "AlignConfig":

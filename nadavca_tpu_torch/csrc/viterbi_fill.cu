@@ -30,32 +30,41 @@
 // words) are far below what the memory system moves in that time. Chunks that
 // lie wholly beyond a read's end skip the step loop and store zero words.
 //
+// The skip variant (viterbi_fill_skip_kernel) replaces the use_skip branch of
+// the same TPU kernel (pallas_dp.py:293-305, 313, 323-337): a third candidate
+// V[t-1, j-2] + log_p_skip and a second plane of decision words,
+//   emit = em_const - (x - mu)^2 * inv2v        (no polynomial, nothing folded)
+//   stay = V[j] + log_p_stay,  move = V[j-1] + log_p_move,  bit = move > stay,
+//   skip = V[j-2] + log_p_skip,  bit2 = skip > max(stay, move),  bit &= !bit2,
+//   V' = emit + max(stay, move, skip);  free start: emit itself.
+// The strict compares make stay beat move beat skip on ties. NEG_INF and the
+// default log_p_skip are both the finite -1e30; their sums stay finite in
+// float32 because nothing clamps them, so the operation order is the TPU's.
+// Slot j takes slots j-1 and j-2 of the previous step out of the same
+// shared-memory row after the one barrier of the step. Both variants are one
+// body, specialised at compile time: the step loop without skip holds no
+// branch on the variant and is the program it was before the skip existed.
+//
 // Built with -fmad=false: see common.cuh.
 
 #include "common.cuh"
 
-__device__ __forceinline__ float block_max(float v, float* red, int j, int n_warps) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if ((j & 31) == 0) red[j >> 5] = v;
-    __syncthreads();
-    float m = red[0];
-    for (int w = 1; w < n_warps; ++w) m = fmaxf(m, red[w]);
-    return m;
-}
-
-__global__ void viterbi_fill_kernel(const float* __restrict__ x,
-                                    const int* __restrict__ t_len,
-                                    const float* __restrict__ mu_b,
-                                    const float* __restrict__ sg_b,
-                                    const int* __restrict__ lo,
-                                    const int* __restrict__ delta,
-                                    const int* __restrict__ n_ref,
-                                    int* __restrict__ dec,
-                                    float* __restrict__ v_out,
-                                    float* __restrict__ acc_out,
-                                    int R, int T, int C, int B,
-                                    float log_p_stay, float dcs) {
+// p1, p2: without skip (log_p_move - log_p_stay, unused); with skip
+// (log_p_move, log_p_skip). dec2 is the second plane, with skip only.
+template <bool SKIP>
+__device__ __forceinline__ void fill_body(const float* __restrict__ x,
+                                          const int* __restrict__ t_len,
+                                          const float* __restrict__ mu_b,
+                                          const float* __restrict__ sg_b,
+                                          const int* __restrict__ lo,
+                                          const int* __restrict__ delta,
+                                          const int* __restrict__ n_ref,
+                                          int* __restrict__ dec,
+                                          int* __restrict__ dec2,
+                                          float* __restrict__ v_out,
+                                          float* __restrict__ acc_out,
+                                          int R, int T, int C, int B,
+                                          float log_p_stay, float p1, float p2) {
     extern __shared__ float smem[];
     float* vbuf0 = smem;            // B
     float* vbuf1 = smem + B;        // B
@@ -86,7 +95,9 @@ __global__ void viterbi_fill_kernel(const float* __restrict__ x,
         }
         int n_act = tl - t0;
         if (n_act > C) n_act = C;
-        int* dec_c = dec + ((size_t)(t0 >> 5) * R + r) * B + j;
+        const size_t dec_off = ((size_t)(t0 >> 5) * R + r) * B + j;
+        int* dec_c = dec + dec_off;
+        int* dec2_c = SKIP ? dec2 + dec_off : nullptr;
         const size_t word_stride = (size_t)R * B;
         int words_done = 0;
 
@@ -104,34 +115,57 @@ __global__ void viterbi_fill_kernel(const float* __restrict__ x,
             const float c0p = (em_const - (mu * mu) * inv2v) + log_p_stay;
             __syncthreads();
 
-            unsigned pack = 0u;
+            unsigned pack = 0u, pack2 = 0u;
             for (int s = 0; s < n_act; ++s) {
                 float* buf = (s & 1) ? vbuf1 : vbuf0;
                 buf[j] = v;
                 __syncthreads();
                 const float vm1 = (j > 0) ? buf[j - 1] : NADAVCA_NEG_INF;
                 const float xv = xs[s];
-                const float emit = (c2p * xv + c1p) * xv + c0p;
-                const float mv = vm1 + dcs;
-                if (t0 + s == 0) {
-                    v = emit - log_p_stay;
+                if (SKIP) {
+                    const float vm2 = (j > 1) ? buf[j - 2] : NADAVCA_NEG_INF;
+                    const float diff = xv - mu;
+                    const float emit = em_const - (diff * diff) * inv2v;
+                    if (t0 + s == 0) {
+                        v = emit;
+                    } else {
+                        const float stay = v + log_p_stay;
+                        const float move = vm1 + p1;
+                        const float best = fmaxf(stay, move);
+                        const float skip = vm2 + p2;
+                        const bool bit2 = skip > best;
+                        if (move > stay && !bit2) pack |= 1u << (s & 31);
+                        if (bit2) pack2 |= 1u << (s & 31);
+                        v = emit + fmaxf(best, skip);
+                    }
                 } else {
-                    if (mv > v) pack |= 1u << (s & 31);
-                    v = emit + fmaxf(v, mv);
+                    const float emit = (c2p * xv + c1p) * xv + c0p;
+                    const float mv = vm1 + p1;
+                    if (t0 + s == 0) {
+                        v = emit - log_p_stay;
+                    } else {
+                        if (mv > v) pack |= 1u << (s & 31);
+                        v = emit + fmaxf(v, mv);
+                    }
                 }
                 if ((s & 31) == 31) {
                     dec_c[(size_t)words_done * word_stride] = (int)pack;
+                    if (SKIP) dec2_c[(size_t)words_done * word_stride] = (int)pack2;
                     ++words_done;
                     pack = 0u;
+                    pack2 = 0u;
                 }
             }
             if (n_act & 31) {
                 dec_c[(size_t)words_done * word_stride] = (int)pack;
+                if (SKIP) dec2_c[(size_t)words_done * word_stride] = (int)pack2;
                 ++words_done;
             }
         }
-        for (int w = words_done; w < wpc; ++w)
+        for (int w = words_done; w < wpc; ++w) {
             dec_c[(size_t)w * word_stride] = 0;
+            if (SKIP) dec2_c[(size_t)w * word_stride] = 0;
+        }
 
         // chunk-end renormalisation into the accumulator
         float m = block_max(v, red, j, n_warps);
@@ -144,6 +178,44 @@ __global__ void viterbi_fill_kernel(const float* __restrict__ x,
     if (j == 0) acc_out[r] = acc;
 }
 
+__global__ void viterbi_fill_kernel(const float* __restrict__ x,
+                                    const int* __restrict__ t_len,
+                                    const float* __restrict__ mu_b,
+                                    const float* __restrict__ sg_b,
+                                    const int* __restrict__ lo,
+                                    const int* __restrict__ delta,
+                                    const int* __restrict__ n_ref,
+                                    int* __restrict__ dec,
+                                    float* __restrict__ v_out,
+                                    float* __restrict__ acc_out,
+                                    int R, int T, int C, int B,
+                                    float log_p_stay, float dcs) {
+    fill_body<false>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, nullptr, v_out,
+                     acc_out, R, T, C, B, log_p_stay, dcs, 0.0f);
+}
+
+__global__ void viterbi_fill_skip_kernel(const float* __restrict__ x,
+                                         const int* __restrict__ t_len,
+                                         const float* __restrict__ mu_b,
+                                         const float* __restrict__ sg_b,
+                                         const int* __restrict__ lo,
+                                         const int* __restrict__ delta,
+                                         const int* __restrict__ n_ref,
+                                         int* __restrict__ dec,
+                                         int* __restrict__ dec2,
+                                         float* __restrict__ v_out,
+                                         float* __restrict__ acc_out,
+                                         int R, int T, int C, int B,
+                                         float log_p_stay, float log_p_move,
+                                         float log_p_skip) {
+    fill_body<true>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, dec2, v_out,
+                    acc_out, R, T, C, B, log_p_stay, log_p_move, log_p_skip);
+}
+
+static bool fill_shape_ok(int C, int B, int T) {
+    return !(B < 32 || B > 1024 || (B & 31) || (C & 31) || C <= 0 || T % C);
+}
+
 NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
                                         const float* mu_b, const float* sg_b,
                                         const int* lo, const int* delta,
@@ -153,11 +225,27 @@ NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
                                         float log_p_stay, float dcs,
                                         void* stream) {
     if (R == 0) return 0;
-    if (B < 32 || B > 1024 || (B & 31) || (C & 31) || C <= 0 || T % C)
-        return (int)cudaErrorInvalidValue;
+    if (!fill_shape_ok(C, B, T)) return (int)cudaErrorInvalidValue;
     const size_t shmem = (size_t)(2 * B + C + 32) * sizeof(float);
     viterbi_fill_kernel<<<R, B, shmem, (cudaStream_t)stream>>>(
         x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, v_out, acc_out,
         R, T, C, B, log_p_stay, dcs);
+    return (int)cudaGetLastError();
+}
+
+NADAVCA_EXPORT int nadavca_viterbi_fill_skip(const float* x, const int* t_len,
+                                             const float* mu_b, const float* sg_b,
+                                             const int* lo, const int* delta,
+                                             const int* n_ref, int* dec, int* dec2,
+                                             float* v_out, float* acc_out,
+                                             int R, int T, int C, int B,
+                                             float log_p_stay, float log_p_move,
+                                             float log_p_skip, void* stream) {
+    if (R == 0) return 0;
+    if (!fill_shape_ok(C, B, T)) return (int)cudaErrorInvalidValue;
+    const size_t shmem = (size_t)(2 * B + C + 32) * sizeof(float);
+    viterbi_fill_skip_kernel<<<R, B, shmem, (cudaStream_t)stream>>>(
+        x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, dec2, v_out, acc_out,
+        R, T, C, B, log_p_stay, log_p_move, log_p_skip);
     return (int)cudaGetLastError();
 }

@@ -4,8 +4,12 @@ Counterpart of ``nadavca_tpu/ops/banded_dp.py``: a Python loop over the
 signal axis t on (R, B) tensors, renormalised every step, vectorised over
 reads and band slots. It is the portable reference of the port (any device)
 and is written operation for operation like the JAX function so that both
-take the same decisions: the polynomial emission with the stay transition
-folded in, and the compare on the transition difference.
+take the same decisions: without skip the polynomial emission with the stay
+transition folded in and the compare on the transition difference; with
+``cfg.use_skip`` the Gaussian log-density emission and the first maximum over
+the stacked stay / move / skip candidates. ``pin_start`` / ``pin_end``
+constrain the path to begin at position 0 / end at position ``n_ref - 1``
+(the joint refiner pins both).
 
 Shapes (R reads, T padded signal length, B band width, N padded window length
 in k-mer positions):
@@ -15,9 +19,6 @@ in k-mer positions):
   n_ref    (R,)    int32     true window lengths (k-mer positions)
   lo       (R, T)  int32     band start per sample; nondecreasing; padded by
                              repeating the final value
-
-Not ported yet (each raises ``NotImplementedError``): the skip transition
-(``cfg.use_skip``) and pinned endpoints.
 """
 
 from __future__ import annotations
@@ -65,11 +66,6 @@ def banded_viterbi_batch(
     pin_end: bool = False,
 ) -> ViterbiResult:
     """Fill + backtrack of the banded Viterbi over a padded batch."""
-    if cfg.use_skip:
-        raise NotImplementedError(
-            "the skip transition (use_skip=True) is not ported yet")
-    if pin_start or pin_end:
-        raise NotImplementedError("pinned endpoints are not ported yet")
     R, T = x.shape
     B = cfg.band_width
     dev = x.device
@@ -83,6 +79,11 @@ def banded_viterbi_batch(
         m = _band_gather(mu, i, 0.0)
         s = _band_gather(sigma, i, 1.0)
         valid = i < n_ref[:, None]
+        xc = x[:, t][:, None]
+        if cfg.use_skip:
+            z = (xc - m) / s
+            e = -0.5 * z * z - torch.log(s) - _HALF_LOG_2PI
+            return torch.where(valid, e, neg)
         # the fill kernel's polynomial emission, stay transition folded in;
         # returns e + log_p_stay, the t = 0 free start subtracts it back
         inv2v = 0.5 / (s * s)
@@ -91,29 +92,41 @@ def banded_viterbi_batch(
         c2p = -inv2v
         c1p = (m + m) * inv2v
         c0p = em_const - m * m * inv2v + cfg.log_p_stay
-        xc = x[:, t][:, None]
         return (c2p * xc + c1p) * xc + c0p
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
 
-    V = emit_at(0) - cfg.log_p_stay
+    # t = 0: free start anywhere in the band (or pinned to position 0)
+    V = emit_at(0) if cfg.use_skip else emit_at(0) - cfg.log_p_stay
+    if pin_start:
+        V = torch.where(lo[:, 0][:, None] + j_idx == 0, V, neg)
     m0 = V.max(dim=1).values
     m0 = torch.where(m0 > NEG_INF / 2, m0, zero)
     V = V - m0[:, None]
     acc = m0
 
     dcs = cfg.log_p_move - cfg.log_p_stay
+    trans = (cfg.log_p_stay, cfg.log_p_move, cfg.log_p_skip)
     decs = torch.zeros((max(T - 1, 0), R, B), dtype=torch.int8, device=dev)
     # steps at or beyond the longest read are identity for every row
     t_stop = min(T, int(t_len.max())) if R else 0
 
     for t in range(1, t_stop):
         d = (lo[:, t] - lo[:, t - 1])[:, None]            # (R, 1)
-        v0 = _band_gather(V, j_idx + d, NEG_INF)
-        mv = _band_gather(V, j_idx + d - 1, NEG_INF) + dcs
-        best = mv > v0
-        best_val = torch.maximum(v0, mv)
+        if cfg.use_skip:
+            cands = torch.stack(
+                [_band_gather(V, j_idx + d - adv, NEG_INF) + trans[adv]
+                 for adv in range(3)], dim=0)                 # (3, R, B)
+            # ties go to the smaller advance: stay beats move beats skip
+            best_val = cands.max(dim=0).values
+            best = ((cands[0] < best_val).to(torch.int8)
+                    + ((cands[0] < best_val) & (cands[1] < best_val)).to(torch.int8))
+        else:
+            v0 = _band_gather(V, j_idx + d, NEG_INF)
+            mv = _band_gather(V, j_idx + d - 1, NEG_INF) + dcs
+            best = mv > v0
+            best_val = torch.maximum(v0, mv)
         has_pred = best_val > NEG_INF / 2
         V_new = torch.where(has_pred, emit_at(t) + best_val, neg)
         dec = torch.where(has_pred, best.to(torch.int8),
@@ -131,6 +144,8 @@ def banded_viterbi_batch(
 
     i_fin = lo[:, T - 1][:, None] + j_idx
     V_valid = torch.where(i_fin < n_ref[:, None], V, neg)
+    if pin_end:
+        V_valid = torch.where(i_fin == (n_ref - 1)[:, None], V_valid, neg)
     j_end = torch.argmax(V_valid, dim=1)
     score = acc + torch.gather(V_valid, 1, j_end[:, None])[:, 0]
 

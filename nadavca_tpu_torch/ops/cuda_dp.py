@@ -1,22 +1,30 @@
-"""The three alignment kernels of the port: wrappers and plain versions.
+"""The alignment kernels of the port: wrappers and plain versions.
 
-Counterpart of ``nadavca_tpu/ops/pallas_dp.py``. Each TPU kernel has a
-hand-written CUDA kernel under ``csrc/`` and, beside its wrapper here, a plain
-PyTorch version with the same contract:
+Counterpart of ``nadavca_tpu/ops/pallas_dp.py``. Each TPU kernel, and each
+variant of one that is a program of its own, has a hand-written CUDA kernel
+under ``csrc/`` and, beside its wrapper here, a plain PyTorch version with the
+same contract:
 
-  ``band_gather``   csrc/band_gather.cu    plain: ``band_gather_plain``
-  ``viterbi_fill``  csrc/viterbi_fill.cu   plain: ``viterbi_fill_plain``
-  ``backtrack``     csrc/backtrack.cu      plain: ``backtrack_plain``
+  ``band_gather``        csrc/band_gather.cu        ``band_gather_plain``
+  ``viterbi_fill``       csrc/viterbi_fill.cu       ``viterbi_fill_plain``
+  ``viterbi_fill_skip``  csrc/viterbi_fill.cu       ``viterbi_fill_plain`` (``use_skip``)
+  ``viterbi_fill_pair``  csrc/viterbi_fill_pair.cu  ``viterbi_fill_pair_plain``
+  ``backtrack``          csrc/backtrack.cu          ``backtrack_plain``
+  ``backtrack_skip``     csrc/backtrack.cu          ``backtrack_plain`` (two planes)
 
 A wrapper checks its arguments, then looks at where the tensors lie: on the
 CPU it runs the plain version; on a CUDA device it launches the kernel on the
 current stream, or raises. Nothing falls back from the kernel to the plain
 version. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+``viterbi_fill`` and ``backtrack`` hand over to their variants as the config
+(``use_skip``, ``dp_pair_step``) or the number of planes says, so callers use
+those two names only.
 
 The band is constant within a chunk of C samples (``sched/bands.py``), the
 fill renormalises once per chunk, and decisions are packed 32 steps to an
-int32 word in a ``(T/32, R, B)`` array: bit s of word w at (r, j) is 1 iff the
-best predecessor of cell (t = 32w + s, slot j) of read r is slot j - 1.
+int32 word in ``(T/32, R, B)`` planes: bit s of word w at (r, j) of plane 0 is
+1 iff the best predecessor of cell (t = 32w + s, slot j) of read r is slot
+j - 1; with the skip transition a second plane marks predecessor j - 2.
 """
 
 from __future__ import annotations
@@ -105,96 +113,203 @@ band_gather.launches = 0
 
 # ---------------------------------------------------------------------- fill
 def _check_fill_cfg(cfg: AlignConfig) -> None:
-    if cfg.use_skip:
-        raise NotImplementedError(
-            "the skip transition (use_skip=True) is not ported yet")
-    if cfg.dp_pair_step:
-        raise NotImplementedError(
-            "the two-sample fill step (dp_pair_step=True) is not ported yet")
     if cfg.signal_chunk % 32 != 0:
         raise ValueError("signal_chunk must be a multiple of 32")
 
 
+def _shift(a, n: int, fill_col):
+    """a'[:, j] = a[:, j - n], ``fill_col`` (R, 1) shifted in on the left."""
+    return torch.cat([fill_col.expand(-1, n), a[:, : a.shape[1] - n]], dim=1)
+
+
+class _FillState:
+    """What the plain fills share: per-chunk realignment of the carried row,
+    emission constants, packed decision words, chunk-end renormalisation."""
+
+    def __init__(self, x, t_len, lo, delta, n_ref, cfg, n_planes):
+        _check_fill_cfg(cfg)
+        self.R, self.T = x.shape
+        self.B, self.C = cfg.band_width, cfg.signal_chunk
+        dev = self.dev = x.device
+        R, B = self.R, self.B
+        self.lane = torch.arange(B, dtype=torch.int64, device=dev)[None, :]
+        self.t_len = t_len.to(torch.int64)
+        self.n_ref = n_ref.to(torch.int64)
+        self.lo = lo.to(torch.int64)
+        self.delta = delta.to(torch.int64)
+        self.neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+        self.neg_col = torch.full((R, 1), NEG_INF, dtype=torch.float32, device=dev)
+        self.zero = torch.zeros((), dtype=torch.float32, device=dev)
+        self.decs = tuple(torch.zeros((self.T // 32, R, B), dtype=torch.int32,
+                                      device=dev) for _ in range(n_planes))
+        self.v = torch.full((R, B), NEG_INF, dtype=torch.float32, device=dev)
+        self.acc = torch.zeros((R,), dtype=torch.float32, device=dev)
+        self.t_max = int(self.t_len.max()) if R else 0
+
+    def realign(self, c):
+        """Move the carried row to chunk c's band start."""
+        src = self.lane + self.delta[:, c][:, None]
+        ok = (src >= 0) & (src < self.B)
+        self.v = torch.where(ok, torch.gather(self.v, 1, src.clamp(0, self.B - 1)),
+                             self.neg)
+
+    def constants(self, c, mu_band, sigma_band):
+        """(mu, em_const, inv2v) of chunk c; dead slots carry NEG_INF."""
+        sg = sigma_band[c]
+        pos_valid = (self.lo[:, c][:, None] + self.lane) < self.n_ref[:, None]
+        em_const = torch.where(pos_valid, -torch.log(sg) - _HALF_LOG_2PI, self.neg)
+        return mu_band[c], em_const, 0.5 / (sg * sg)
+
+    def renormalise(self):
+        m = self.v.max(dim=1).values
+        m = torch.where(m > NEG_INF / 2, m, self.zero)
+        self.v = self.v - m[:, None]
+        self.acc = self.acc + m
+
+
 def viterbi_fill_plain(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
                        cfg: AlignConfig):
-    """Plain version of :func:`viterbi_fill`: a Python loop over t on (R, B)
-    tensors with the kernel's semantics (per-chunk band, per-chunk
-    renormalisation, packed decision words)."""
-    _check_fill_cfg(cfg)
-    R, T = x.shape
-    B, C = cfg.band_width, cfg.signal_chunk
-    n_chunks = T // C
-    dev = x.device
-    lane = torch.arange(B, dtype=torch.int64, device=dev)[None, :]
-    t_len = t_len.to(torch.int64)
-    n_ref = n_ref.to(torch.int64)
-    lo = lo.to(torch.int64)
-    delta = delta.to(torch.int64)
+    """Plain version of :func:`viterbi_fill` and :func:`viterbi_fill_skip`: a
+    Python loop over t on (R, B) tensors with the kernels' semantics (per-chunk
+    band, per-chunk renormalisation, packed decision words). ``cfg.use_skip``
+    selects the three-candidate step with two decision planes. Returns
+    (decs, V, acc) with ``decs`` a tuple of one or two planes."""
+    skip = bool(cfg.use_skip)
+    st = _FillState(x, t_len, lo, delta, n_ref, cfg, 2 if skip else 1)
+    R, B, C = st.R, st.B, st.C
+    dev = st.dev
     dcs = cfg.log_p_move - cfg.log_p_stay
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
-    neg_col = torch.full((R, 1), NEG_INF, dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    neg_col = st.neg_col
 
-    dec = torch.zeros((T // 32, R, B), dtype=torch.int32, device=dev)
-    v = torch.full((R, B), NEG_INF, dtype=torch.float32, device=dev)
-    acc = torch.zeros((R,), dtype=torch.float32, device=dev)
-    t_max = int(t_len.max()) if R else 0
-
-    for c in range(n_chunks):
+    for c in range(st.T // C):
         t0 = c * C
         if c > 0:
-            src = lane + delta[:, c][:, None]
-            ok = (src >= 0) & (src < B)
-            v = torch.where(ok, torch.gather(v, 1, src.clamp(0, B - 1)), neg)
-        if t0 < t_max:      # else every step of the chunk is an identity step
-            mu = mu_band[c]
-            sg = sigma_band[c]
-            pos_valid = (lo[:, c][:, None] + lane) < n_ref[:, None]
-            em_const = torch.where(pos_valid, -torch.log(sg) - _HALF_LOG_2PI, neg)
-            inv2v = 0.5 / (sg * sg)
+            st.realign(c)
+        n_steps = min(C, st.t_max - t0)
+        if n_steps > 0:     # else every step of the chunk is an identity step
+            mu, em_const, inv2v = st.constants(c, mu_band, sigma_band)
             c2p = -inv2v
             c1p = (mu + mu) * inv2v
             c0p = em_const - mu * mu * inv2v + cfg.log_p_stay
-            pack = torch.zeros((R, B), dtype=torch.int32, device=dev)
-            for s in range(min(C, t_max - t0)):
+            packs = [torch.zeros((R, B), dtype=torch.int32, device=dev)
+                     for _ in st.decs]
+            for s in range(n_steps):
                 t = t0 + s
+                v = st.v
                 xc = x[:, t][:, None]
-                emit = (c2p * xc + c1p) * xc + c0p
-                mv = torch.cat([neg_col, v[:, : B - 1]], dim=1) + dcs
-                if t == 0:
-                    v_new = emit - cfg.log_p_stay
-                    bit = torch.zeros((R, B), dtype=torch.bool, device=dev)
+                if skip:
+                    diff = xc - mu
+                    emit = em_const - diff * diff * inv2v
+                    stay = v + cfg.log_p_stay
+                    move = _shift(v, 1, neg_col) + cfg.log_p_move
+                    bit = move > stay
+                    best = torch.maximum(stay, move)
+                    # strict compares: stay beats move beats skip on ties
+                    skp = _shift(v, 2, neg_col) + cfg.log_p_skip
+                    bit2 = skp > best
+                    bit = bit & ~bit2
+                    best = torch.maximum(best, skp)
+                    free = emit
                 else:
+                    emit = (c2p * xc + c1p) * xc + c0p
+                    mv = _shift(v, 1, neg_col) + dcs
                     bit = mv > v
-                    v_new = emit + torch.maximum(v, mv)
-                active = (t < t_len)[:, None]
-                v = torch.where(active, v_new, v)
-                bit = bit & active
-                pack = pack | (bit.to(torch.int32) << (s % 32))
-                if s % 32 == 31:
-                    dec[t // 32] = pack
+                    best = torch.maximum(v, mv)
+                    free = emit - cfg.log_p_stay
+                active = (t < st.t_len)[:, None]
+                if t == 0:
+                    v_new = free
+                    bits = [torch.zeros_like(bit)] * len(packs)
+                else:
+                    v_new = emit + best
+                    bits = [bit, bit2] if skip else [bit]
+                st.v = torch.where(active, v_new, v)
+                for p, b in enumerate(bits):
+                    packs[p] = packs[p] | ((b & active).to(torch.int32) << (s % 32))
+                if s % 32 == 31 or s == n_steps - 1:
+                    for p, dec in enumerate(st.decs):
+                        dec[t // 32] = packs[p]
+                        packs[p] = torch.zeros_like(packs[p])
+        st.renormalise()
+    return st.decs, st.v, st.acc
+
+
+def viterbi_fill_pair_plain(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
+                            cfg: AlignConfig):
+    """Plain version of :func:`viterbi_fill_pair`: two samples per iteration,
+    regrouped by total advance 0 / 1 / 2, the per-sample bits recovered from
+    the winning decomposition. Same outputs as the single-step fill without
+    skip: ((plane,), V, acc)."""
+    st = _FillState(x, t_len, lo, delta, n_ref, cfg, 1)
+    R, B, C = st.R, st.B, st.C
+    dev = st.dev
+    cs, cm = cfg.log_p_stay, cfg.log_p_move
+    neg_col = st.neg_col
+    dec = st.decs[0]
+
+    for c in range(st.T // C):
+        t0 = c * C
+        if c > 0:
+            st.realign(c)
+        n_steps = min(C, st.t_max - t0)
+        if n_steps > 0:
+            mu, em_const, inv2v = st.constants(c, mu_band, sigma_band)
+            tmask = (st.t_len - t0)[:, None]
+            pack = torch.zeros((R, B), dtype=torch.int32, device=dev)
+            for s in range(0, n_steps, 2):
+                v = st.v
+                d1 = x[:, t0 + s][:, None] - mu
+                e1 = em_const - d1 * d1 * inv2v
+                d2 = x[:, t0 + s + 1][:, None] - mu
+                e2 = em_const - d2 * d2 * inv2v
+                e1m = _shift(e1, 1, neg_col)
+                vm1 = _shift(v, 1, neg_col)
+                # half pair (the read ends between the two samples): one
+                # single step from v
+                stay_h = v + cs
+                move_h = vm1 + cm
+                if t0 + s == 0:
+                    # free start at the first sample, one single step from it
+                    stay_f = e1 + cs
+                    move_f = e1m + cm
+                    bit_hi = move_f > stay_f
+                    bit_lo = torch.zeros_like(bit_hi)
+                    v_new = e2 + torch.maximum(stay_f, move_f)
+                    v_half = e1
+                    bit_lo_half = bit_lo
+                else:
+                    # pair-transition constants, functions of the emissions alone
+                    K0 = e1 + (cs + cs)
+                    b_dec = e1m > e1
+                    K1 = torch.maximum(e1, e1m) + (cs + cm)
+                    K2 = e1m + (cm + cm)
+                    c0 = v + K0
+                    c1 = vm1 + K1
+                    c2 = _shift(v, 2, neg_col) + K2
+                    a1best = c1 > c0
+                    m01 = torch.maximum(c0, c1)
+                    a2best = c2 > m01
+                    v_new = e2 + torch.maximum(m01, c2)
+                    bit_hi = a2best | (a1best & b_dec)
+                    bit_lo = a2best | (a1best & ~b_dec)
+                    v_half = e1 + torch.maximum(stay_h, move_h)
+                    bit_lo_half = move_h > stay_h
+                act1 = s < tmask
+                act2 = (s + 1) < tmask
+                st.v = torch.where(act2, v_new, torch.where(act1, v_half, v))
+                bit_lo = (act2 & bit_lo) | (~act2 & bit_lo_half & act1)
+                bit_hi = bit_hi & act2
+                pack = pack | (bit_lo.to(torch.int32) << (s % 32))
+                pack = pack | (bit_hi.to(torch.int32) << ((s + 1) % 32))
+                if s % 32 == 30 or s + 2 >= n_steps:
+                    dec[(t0 + s) // 32] = pack
                     pack = torch.zeros_like(pack)
-            if min(C, t_max - t0) % 32:
-                dec[(t0 + min(C, t_max - t0)) // 32] = pack
-        m = v.max(dim=1).values
-        m = torch.where(m > NEG_INF / 2, m, zero)
-        v = v - m[:, None]
-        acc = acc + m
-    return dec, v, acc
+        st.renormalise()
+    return st.decs, st.v, st.acc
 
 
-def viterbi_fill(x: torch.Tensor, t_len: torch.Tensor, mu_band: torch.Tensor,
-                 sigma_band: torch.Tensor, lo: torch.Tensor,
-                 delta: torch.Tensor, n_ref: torch.Tensor, cfg: AlignConfig):
-    """Banded Viterbi fill.
-
-    x (R, T) f32; t_len, n_ref (R,) i32; mu_band, sigma_band (n_chunks, R, B)
-    f32 from :func:`band_gather`; lo, delta (R, n_chunks) i32 with delta >= 0.
-    T must be a multiple of ``cfg.signal_chunk``, which must be a multiple of
-    32. Returns (dec (T/32, R, B) i32 packed decision words, V (R, B) f32 the
-    final renormalised band row, acc (R,) f32 the renormalisation
-    accumulator) — the contract of ``viterbi_fill_pallas`` without skip.
-    """
+def _fill_prologue(name, x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg):
+    """Argument checks shared by the three fill wrappers. Returns (R, T, C, B)."""
     _check_fill_cfg(cfg)
     dev = x.device
     if x.dim() != 2:
@@ -211,41 +326,137 @@ def viterbi_fill(x: torch.Tensor, t_len: torch.Tensor, mu_band: torch.Tensor,
     _check("sigma_band", sigma_band, torch.float32, (n_chunks, R, B), dev)
     _check("lo", lo, torch.int32, (R, n_chunks), dev)
     _check("delta", delta, torch.int32, (R, n_chunks), dev)
-    if dev.type == "cpu":
-        return viterbi_fill_plain(x, t_len, mu_band, sigma_band, lo, delta,
-                                  n_ref, cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"viterbi_fill: unsupported device {dev}")
-    if B > 1024:
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and B > 1024:
         raise ValueError(f"band_width {B} exceeds one thread block (1024 slots)")
-    lib = kernel_build.load_library()
+    return R, T, C, B
+
+
+def _fill_outputs(R, T, B, dev, n_planes):
     # every word is written by the kernel (zeros for chunks beyond a read's end)
-    dec = torch.empty((T // 32, R, B), dtype=torch.int32, device=dev)
+    decs = tuple(torch.empty((T // 32, R, B), dtype=torch.int32, device=dev)
+                 for _ in range(n_planes))
     v_out = torch.empty((R, B), dtype=torch.float32, device=dev)
     acc = torch.empty((R,), dtype=torch.float32, device=dev)
+    return decs, v_out, acc
+
+
+def viterbi_fill(x: torch.Tensor, t_len: torch.Tensor, mu_band: torch.Tensor,
+                 sigma_band: torch.Tensor, lo: torch.Tensor,
+                 delta: torch.Tensor, n_ref: torch.Tensor, cfg: AlignConfig):
+    """Banded Viterbi fill.
+
+    x (R, T) f32; t_len, n_ref (R,) i32; mu_band, sigma_band (n_chunks, R, B)
+    f32 from :func:`band_gather`; lo, delta (R, n_chunks) i32 with delta >= 0.
+    T must be a multiple of ``cfg.signal_chunk``, which must be a multiple of
+    32. Returns (decs, V (R, B) f32 the final renormalised band row, acc (R,)
+    f32 the renormalisation accumulator), where ``decs`` is a tuple of
+    (T/32, R, B) i32 planes of packed decision words: one plane without skip,
+    two with — the contract of ``viterbi_fill_pallas``.
+
+    ``cfg.use_skip`` goes to :func:`viterbi_fill_skip`, ``cfg.dp_pair_step``
+    (without skip) to :func:`viterbi_fill_pair`; what is launched and counted
+    here is the single-step kernel without skip.
+    """
+    args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
+    if cfg.use_skip:
+        return viterbi_fill_skip(*args)
+    if cfg.dp_pair_step:
+        return viterbi_fill_pair(*args)
+    R, T, C, B = _fill_prologue("viterbi_fill", *args)
+    dev = x.device
+    if dev.type == "cpu":
+        return viterbi_fill_plain(*args)
+    lib = kernel_build.load_library()
+    decs, v_out, acc = _fill_outputs(R, T, B, dev, 1)
     with torch.cuda.device(dev):
         code = lib.nadavca_viterbi_fill(
             x.data_ptr(), t_len.data_ptr(), mu_band.data_ptr(),
             sigma_band.data_ptr(), lo.data_ptr(), delta.data_ptr(),
-            n_ref.data_ptr(), dec.data_ptr(), v_out.data_ptr(), acc.data_ptr(),
-            R, T, C, B, float(cfg.log_p_stay),
+            n_ref.data_ptr(), decs[0].data_ptr(), v_out.data_ptr(),
+            acc.data_ptr(), R, T, C, B, float(cfg.log_p_stay),
             float(cfg.log_p_move - cfg.log_p_stay), _stream(dev))
     kernel_build.check_launch(lib, code, "viterbi_fill")
     viterbi_fill.launches += 1
-    return dec, v_out, acc
+    return decs, v_out, acc
 
 
 viterbi_fill.launches = 0
 
 
+def viterbi_fill_skip(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
+                      cfg: AlignConfig):
+    """The fill with the skip transition: a third candidate
+    ``V[t-1, j-2] + log_p_skip`` and two decision planes (plane 0: advance 1,
+    plane 1: advance 2). Arguments as :func:`viterbi_fill`; returns
+    ((plane0, plane1), V, acc)."""
+    args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
+    if not cfg.use_skip:
+        raise ValueError("viterbi_fill_skip needs cfg.use_skip")
+    R, T, C, B = _fill_prologue("viterbi_fill_skip", *args)
+    dev = x.device
+    if dev.type == "cpu":
+        return viterbi_fill_plain(*args)
+    lib = kernel_build.load_library()
+    decs, v_out, acc = _fill_outputs(R, T, B, dev, 2)
+    with torch.cuda.device(dev):
+        code = lib.nadavca_viterbi_fill_skip(
+            x.data_ptr(), t_len.data_ptr(), mu_band.data_ptr(),
+            sigma_band.data_ptr(), lo.data_ptr(), delta.data_ptr(),
+            n_ref.data_ptr(), decs[0].data_ptr(), decs[1].data_ptr(),
+            v_out.data_ptr(), acc.data_ptr(), R, T, C, B,
+            float(cfg.log_p_stay), float(cfg.log_p_move),
+            float(cfg.log_p_skip), _stream(dev))
+    kernel_build.check_launch(lib, code, "viterbi_fill_skip")
+    viterbi_fill_skip.launches += 1
+    return decs, v_out, acc
+
+
+viterbi_fill_skip.launches = 0
+
+
+def viterbi_fill_pair(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
+                      cfg: AlignConfig):
+    """The fill without skip, two samples per serial step. Arguments and
+    outputs as :func:`viterbi_fill`: ((plane,), V, acc). Scores agree with the
+    single-step fill to float32 rounding; near-tie decisions can differ,
+    because the regrouped sums round differently."""
+    args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
+    if cfg.use_skip:
+        raise ValueError("viterbi_fill_pair has no skip transition")
+    R, T, C, B = _fill_prologue("viterbi_fill_pair", *args)
+    dev = x.device
+    if dev.type == "cpu":
+        return viterbi_fill_pair_plain(*args)
+    lib = kernel_build.load_library()
+    decs, v_out, acc = _fill_outputs(R, T, B, dev, 1)
+    cs, cm = cfg.log_p_stay, cfg.log_p_move
+    with torch.cuda.device(dev):
+        # the pair constants are summed in double and rounded to float32 once,
+        # as the plain version's Python floats are
+        code = lib.nadavca_viterbi_fill_pair(
+            x.data_ptr(), t_len.data_ptr(), mu_band.data_ptr(),
+            sigma_band.data_ptr(), lo.data_ptr(), delta.data_ptr(),
+            n_ref.data_ptr(), decs[0].data_ptr(), v_out.data_ptr(),
+            acc.data_ptr(), R, T, C, B, float(cs), float(cm),
+            float(cs + cs), float(cs + cm), float(cm + cm), _stream(dev))
+    kernel_build.check_launch(lib, code, "viterbi_fill_pair")
+    viterbi_fill_pair.launches += 1
+    return decs, v_out, acc
+
+
+viterbi_fill_pair.launches = 0
+
+
 # ----------------------------------------------------------------- backtrack
-def backtrack_plain(dec, lo, delta, j_end, chunk_size: int):
-    """Plain version of :func:`backtrack`: a Python loop down t with one
-    (R,)-gather per step."""
-    Tw, R, B = dec.shape
+def backtrack_plain(decs, lo, delta, j_end, chunk_size: int):
+    """Plain version of :func:`backtrack` and :func:`backtrack_skip`: a Python
+    loop down t with one (R,)-gather per plane and step."""
+    Tw, R, B = decs[0].shape
     T = Tw * 32
     C = chunk_size
-    dev = dec.device
+    dev = decs[0].device
     lo = lo.to(torch.int64)
     delta = delta.to(torch.int64)
     j = j_end.to(torch.int64)
@@ -257,8 +468,10 @@ def backtrack_plain(dec, lo, delta, j_end, chunk_size: int):
         path[:, t] = lo[:, c] + j
         if t == 0:
             break
-        word = dec[t // 32][rows, j.clamp(0, B - 1)]
-        adv = ((word >> (t % 32)) & 1).to(torch.int64)
+        jc = j.clamp(0, B - 1)
+        adv = torch.zeros_like(j)
+        for p, dec in enumerate(decs):
+            adv = adv + (((dec[t // 32][rows, jc] >> (t % 32)) & 1).to(torch.int64) << p)
         adv = torch.where(alive, adv, torch.zeros_like(adv))
         j = j - adv
         if t % C == 0:
@@ -268,15 +481,11 @@ def backtrack_plain(dec, lo, delta, j_end, chunk_size: int):
     return path.to(torch.int32)
 
 
-def backtrack(dec: torch.Tensor, lo: torch.Tensor, delta: torch.Tensor,
-              j_end: torch.Tensor, chunk_size: int) -> torch.Tensor:
-    """Per-sample reference positions from the packed decision words.
-
-    dec (T/32, R, B) i32 from :func:`viterbi_fill`; lo, delta (R, n_chunks)
-    i32; j_end (R,) i32 the final band slot. Returns path (R, T) i32 with
-    ``path[r, t] = lo[r, t // C] + j[t]`` — the return value of
-    ``backtrack_pallas`` (kernel and epilogue together).
-    """
+def _backtrack_prologue(name, decs, n_planes, lo, delta, j_end, chunk_size):
+    if not isinstance(decs, (tuple, list)) or len(decs) != n_planes:
+        raise ValueError(f"{name}: expected a tuple of {n_planes} decision "
+                         f"plane(s)")
+    dec = decs[0]
     dev = dec.device
     if dec.dim() != 3:
         raise ValueError(f"dec: expected (T/32, R, B), got {tuple(dec.shape)}")
@@ -286,20 +495,40 @@ def backtrack(dec: torch.Tensor, lo: torch.Tensor, delta: torch.Tensor,
     if C % 32 != 0 or T % C != 0:
         raise ValueError(f"chunk_size={C} must be a multiple of 32 dividing T={T}")
     n_chunks = T // C
-    _check("dec", dec, torch.int32, (Tw, R, B), dev)
+    for p, d in enumerate(decs):
+        _check(f"decs[{p}]", d, torch.int32, (Tw, R, B), dev)
     _check("lo", lo, torch.int32, (R, n_chunks), dev)
     _check("delta", delta, torch.int32, (R, n_chunks), dev)
     _check("j_end", j_end, torch.int32, (R,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return R, T, C, B
+
+
+def backtrack(decs, lo: torch.Tensor, delta: torch.Tensor,
+              j_end: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """Per-sample reference positions from the packed decision words.
+
+    decs: the plane tuple of :func:`viterbi_fill`, each (T/32, R, B) i32; lo,
+    delta (R, n_chunks) i32; j_end (R,) i32 the final band slot. Returns path
+    (R, T) i32 with ``path[r, t] = lo[r, t // C] + j[t]`` — the return value
+    of ``backtrack_pallas`` (kernel and epilogue together). Two planes go to
+    :func:`backtrack_skip`; what is launched and counted here is the one-plane
+    walk.
+    """
+    if isinstance(decs, (tuple, list)) and len(decs) == 2:
+        return backtrack_skip(decs, lo, delta, j_end, chunk_size)
+    R, T, C, B = _backtrack_prologue("backtrack", decs, 1, lo, delta, j_end,
+                                     chunk_size)
+    dev = decs[0].device
     if dev.type == "cpu":
-        return backtrack_plain(dec, lo, delta, j_end, C)
-    if dev.type != "cuda":
-        raise ValueError(f"backtrack: unsupported device {dev}")
+        return backtrack_plain(decs, lo, delta, j_end, C)
     lib = kernel_build.load_library()
     path = torch.empty((R, T), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = lib.nadavca_backtrack(
-            dec.data_ptr(), lo.data_ptr(), delta.data_ptr(), j_end.data_ptr(),
-            path.data_ptr(), R, T, C, B, _stream(dev))
+            decs[0].data_ptr(), lo.data_ptr(), delta.data_ptr(),
+            j_end.data_ptr(), path.data_ptr(), R, T, C, B, _stream(dev))
     kernel_build.check_launch(lib, code, "backtrack")
     backtrack.launches += 1
     return path
@@ -307,7 +536,31 @@ def backtrack(dec: torch.Tensor, lo: torch.Tensor, delta: torch.Tensor,
 
 backtrack.launches = 0
 
-KERNELS = (band_gather, viterbi_fill, backtrack)
+
+def backtrack_skip(decs, lo, delta, j_end, chunk_size: int) -> torch.Tensor:
+    """The walk over two decision planes: the advance at the pointer is
+    ``bit0 + 2 * bit1``. Arguments and result as :func:`backtrack`."""
+    R, T, C, B = _backtrack_prologue("backtrack_skip", decs, 2, lo, delta,
+                                     j_end, chunk_size)
+    dev = decs[0].device
+    if dev.type == "cpu":
+        return backtrack_plain(decs, lo, delta, j_end, C)
+    lib = kernel_build.load_library()
+    path = torch.empty((R, T), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.nadavca_backtrack_skip(
+            decs[0].data_ptr(), decs[1].data_ptr(), lo.data_ptr(),
+            delta.data_ptr(), j_end.data_ptr(), path.data_ptr(), R, T, C, B,
+            _stream(dev))
+    kernel_build.check_launch(lib, code, "backtrack_skip")
+    backtrack_skip.launches += 1
+    return path
+
+
+backtrack_skip.launches = 0
+
+KERNELS = (band_gather, viterbi_fill, backtrack, viterbi_fill_skip,
+           viterbi_fill_pair, backtrack_skip)
 
 
 def reset_launches() -> None:
@@ -337,14 +590,14 @@ def cuda_viterbi_batch(x, t_len, mu, sigma, n_ref, lo, delta, cfg: AlignConfig,
 
     Same contract as ``banded_dp.banded_viterbi_batch`` but taking chunked
     bands (lo, delta (R, n_chunks) from ``sched.build_chunked_bands``).
-    Returns (ViterbiResult, dec).
+    Returns (ViterbiResult, decs) with ``decs`` the tuple of decision planes.
     """
     if mu_band is None:
         mu_band, sg_band = band_gather(mu, sigma, lo, cfg.band_width)
-    dec, v_fin, acc = viterbi_fill(x, t_len, mu_band, sg_band, lo, delta,
+    decs, v_fin, acc = viterbi_fill(x, t_len, mu_band, sg_band, lo, delta,
                                    n_ref, cfg)
     j_end, score = final_slot_and_score(v_fin, acc, lo[:, -1], n_ref)
     if not with_path:
-        return ViterbiResult(score=score, path=None, final_j=j_end), dec
-    path = backtrack(dec, lo, delta, j_end, cfg.signal_chunk)
-    return ViterbiResult(score=score, path=path, final_j=j_end), dec
+        return ViterbiResult(score=score, path=None, final_j=j_end), decs
+    path = backtrack(decs, lo, delta, j_end, cfg.signal_chunk)
+    return ViterbiResult(score=score, path=path, final_j=j_end), decs

@@ -8,11 +8,11 @@ runs the banded Viterbi (the CUDA kernels of ``ops/cuda_dp`` under backend
 rescore: the local re-DP (``snp_rescore="local"``, the default; the CUDA
 kernels of ``ops/cuda_rescore`` under ``"cuda"``, with genome substitution
 tables when the caller built them) or the closed-form fixed-path rescore as
-eager PyTorch. There is no jit layer: ``align_batch`` calls ``device_compute``
-directly.
+eager PyTorch. ``cfg.use_skip`` and ``cfg.dp_pair_step`` select the fill and
+backtrack variants inside ``ops/cuda_dp``. There is no jit layer:
+``align_batch`` calls ``device_compute`` directly.
 
-Not ported yet (each raises ``NotImplementedError``): the skip transition, the
-two-sample fill step, the native C++ prep.
+Not ported yet (raises ``NotImplementedError``): the native C++ prep.
 """
 
 from __future__ import annotations
@@ -258,15 +258,9 @@ def path_to_segments(path: np.ndarray, t_len: int, n_ref: int):
 
 
 def check_supported(cfg: AlignConfig) -> None:
-    """Raise for configurations whose device path is not ported yet."""
+    """Raise for a configuration the device path cannot run."""
     if cfg.snp_rescore not in ("local", "fixed"):
         raise ValueError(f"unknown snp_rescore {cfg.snp_rescore!r}")
-    if cfg.use_skip:
-        raise NotImplementedError(
-            "the skip transition (use_skip=True) is not ported yet")
-    if cfg.dp_pair_step:
-        raise NotImplementedError(
-            "the two-sample fill step (dp_pair_step=True) is not ported yet")
 
 
 def device_compute(

@@ -105,14 +105,3 @@ def test_segment_stats_and_base_loglik_match_jax(batch):
     # statistics and of the terms
     np.testing.assert_allclose(tll.numpy(), np.asarray(jll), rtol=1e-4, atol=2e-3)
     assert np.abs(np.asarray(jll)).max() > 1.0     # the comparison is not vacuous
-
-
-def test_not_ported_paths_raise(batch):
-    t = batch["t"]
-    args = (t["x"], t["t_len"], t["mu"], t["sigma"], t["n_ref"], t["lo"])
-    with pytest.raises(NotImplementedError):
-        tdp.banded_viterbi_batch(*args, AlignConfig(use_skip=True))
-    with pytest.raises(NotImplementedError):
-        tdp.banded_viterbi_batch(*args, AlignConfig(), pin_start=True)
-    with pytest.raises(NotImplementedError):
-        tdp.banded_viterbi_batch(*args, AlignConfig(), pin_end=True)

@@ -27,40 +27,105 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B", [128, 256])
-def test_kernels_match_plain_versions(card, B):
-    rng = np.random.default_rng(3)
+def _dp_inputs(card, B, seed=3):
+    rng = np.random.default_rng(seed)
     R, n_chunks, C, N = 16, 6, 128, 400
     T = n_chunks * C
-    cfg = AlignConfig(band_width=B, snp_rescore="fixed")
-    mu = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(np.float32)).to(card)
-    sigma = torch.from_numpy(rng.uniform(0.1, 0.4, (R, N)).astype(np.float32)).to(card)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    mu = put(rng.normal(0, 1, (R, N)).astype(np.float32))
+    sigma = put(rng.uniform(0.1, 0.4, (R, N)).astype(np.float32))
     delta = rng.integers(0, 20, (R, n_chunks)).astype(np.int32)
     delta[:, 0] = 0
     lo = np.cumsum(delta, axis=1).astype(np.int32)
-    n_ref = torch.from_numpy(rng.integers(N // 2, N, R).astype(np.int32)).to(card)
-    t_len = torch.from_numpy(rng.integers(1, T + 1, R).astype(np.int32)).to(card)
-    lo_t, dl_t = torch.from_numpy(lo).to(card), torch.from_numpy(delta).to(card)
-    x = torch.from_numpy(rng.normal(0, 1, (R, T)).astype(np.float32)).to(card)
+    n_ref = put(rng.integers(N // 2, N, R).astype(np.int32))
+    t_len = rng.integers(1, T + 1, R).astype(np.int32)
+    t_len[:4] = (1, 2, 131, T)           # free start only, half pairs, a full read
+    x = put(rng.normal(0, 1, (R, T)).astype(np.float32))
+    return x, put(t_len), mu, sigma, put(lo), put(delta), n_ref, C
 
-    before = [k.launches for k in cuda_dp.KERNELS]
-    mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
-    p_mu, p_sg = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
-    assert torch.equal(mu_b, p_mu) and torch.equal(sg_b, p_sg)
 
-    args = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref, cfg)
-    dec, v, acc = cuda_dp.viterbi_fill(*args)
-    p_dec, p_v, p_acc = cuda_dp.viterbi_fill_plain(*args)
-    assert torch.equal(dec, p_dec)
+def _launches():
+    return {k.__name__: k.launches for k in cuda_dp.KERNELS}
+
+
+def _assert_fill_equal(got, want):
+    (decs, v, acc), (p_decs, p_v, p_acc) = got, want
+    assert len(decs) == len(p_decs)
+    for d, p in zip(decs, p_decs):
+        assert torch.equal(d, p)
     live = p_v > -5e29
     # the same operations in the same order; logf may differ in its last bit
     assert float(((v - p_v).abs() * live).max()) <= 1e-3
     torch.testing.assert_close(acc, p_acc, rtol=1e-5, atol=1e-3)
 
+
+@pytest.mark.parametrize("B", [128, 256])
+def test_kernels_match_plain_versions(card, B):
+    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B)
+    cfg = AlignConfig(band_width=B, snp_rescore="fixed")
+    before = _launches()
+    mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
+    p_mu, p_sg = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
+    assert torch.equal(mu_b, p_mu) and torch.equal(sg_b, p_sg)
+
+    args = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref, cfg)
+    decs, v, acc = cuda_dp.viterbi_fill(*args)
+    _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*args))
+
     j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
-    path = cuda_dp.backtrack(dec, lo_t, dl_t, j_end, C)
-    assert torch.equal(path, cuda_dp.backtrack_plain(dec, lo_t, dl_t, j_end, C))
-    assert [k.launches for k in cuda_dp.KERNELS] == [b + 1 for b in before]
+    path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
+    assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+    want = {k: n + (k in ("band_gather", "viterbi_fill", "backtrack"))
+            for k, n in before.items()}
+    assert _launches() == want
+
+
+@pytest.mark.parametrize("B", [128, 256])
+def test_skip_and_pair_kernels_match_plain_versions(card, B):
+    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, seed=4)
+    mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
+    before = _launches()
+
+    # the skip fill (two planes) and the two-plane walk, through the two
+    # names every caller uses
+    cfg = AlignConfig(band_width=B, use_skip=True, log_p_skip=-4.6)
+    args = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref, cfg)
+    decs, v, acc = cuda_dp.viterbi_fill(*args)
+    assert len(decs) == 2
+    _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*args))
+    assert not bool((decs[0] & decs[1]).any())      # advance 1 or 2, never both
+    j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
+    path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
+    assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+    live = torch.arange(path.shape[1], device=card)[None, 1:] < t_len[:, None]
+    step = (path[:, 1:] - path[:, :-1]) * live
+    assert int(step.max()) == 2 and int(step.min()) >= 0
+
+    # the disabled skip (log_p_skip = -1e30, the default): sums of two such
+    # numbers stay finite (a cell dead for several steps may still set a skip
+    # bit; no path reaches it)
+    cfg_off = AlignConfig(band_width=B, use_skip=True)
+    args_off = args[:-1] + (cfg_off,)
+    got = cuda_dp.viterbi_fill(*args_off)
+    _assert_fill_equal(got, cuda_dp.viterbi_fill_plain(*args_off))
+    assert bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all())
+
+    # the two-sample fill: one plane, the single-step fill's outputs
+    cfg_pair = AlignConfig(band_width=B, dp_pair_step=True)
+    args_pair = args[:-1] + (cfg_pair,)
+    got = cuda_dp.viterbi_fill(*args_pair)
+    assert len(got[0]) == 1
+    _assert_fill_equal(got, cuda_dp.viterbi_fill_pair_plain(*args_pair))
+    single = cuda_dp.viterbi_fill(*args[:-1], AlignConfig(band_width=B))
+    torch.testing.assert_close(got[2] + got[1].max(1).values,
+                               single[2] + single[1].max(1).values,
+                               rtol=1e-5, atol=2e-3)
+    torch.cuda.synchronize()
+    want = dict(before, viterbi_fill_skip=before["viterbi_fill_skip"] + 2,
+                backtrack_skip=before["backtrack_skip"] + 1,
+                viterbi_fill_pair=before["viterbi_fill_pair"] + 1,
+                viterbi_fill=before["viterbi_fill"] + 1)
+    assert _launches() == want
 
 
 def _rescore_inputs(card, R, L, T, t_w, k, seed):

@@ -110,7 +110,7 @@ def test_band_gather_matches_pallas(case):
 
 def test_viterbi_fill_matches_pallas(case):
     t = case["t"]
-    dec, v_fin, acc = cuda_dp.viterbi_fill(
+    (dec,), v_fin, acc = cuda_dp.viterbi_fill(
         t["x"], t["t_len"], torch.from_numpy(case["mu_b"]),
         torch.from_numpy(case["sg_b"]), t["lo"], t["delta"], t["n_ref"],
         case["tcfg"])
@@ -147,7 +147,7 @@ def test_backtrack_matches_pallas(case):
     # the Pallas side's decision words and final slots go in, and its path
     # (backtrack_pallas inside pallas_viterbi_batch) is what must come out
     path_t = cuda_dp.backtrack(
-        torch.from_numpy(case["dec"]), t["lo"], t["delta"],
+        (torch.from_numpy(case["dec"]),), t["lo"], t["delta"],
         torch.from_numpy(case["final_j"].astype(np.int32)), 128)
     # an integer walk over the same bits: exact, padding samples included
     np.testing.assert_array_equal(path_t.numpy(), case["path"])
@@ -202,9 +202,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):          # int64 band starts
         cuda_dp.band_gather(torch.zeros((8, 64)), torch.ones((8, 64)),
                             lo.long(), 128)
-    with pytest.raises(NotImplementedError):
-        cuda_dp.viterbi_fill(x, i, band, band, lo, lo, i,
-                             AlignConfig(use_skip=True))
+    # the skip transition gives two decision planes, and the walk takes both
+    decs, _, _ = cuda_dp.viterbi_fill(x, i, band, band, lo, lo, i,
+                                      AlignConfig(use_skip=True))
+    assert len(decs) == 2 and decs[0].shape == decs[1].shape == (4, 8, 128)
+    assert cuda_dp.backtrack(decs, lo, lo, i, 128).shape == (8, 128)
+    with pytest.raises(ValueError):         # a bare tensor is not a plane tuple
+        cuda_dp.backtrack(decs[0], lo, lo, i, 128)
     # on the CPU the plain versions run and no kernel launch is counted
     before = [k.launches for k in cuda_dp.KERNELS]
     cuda_dp.band_gather(torch.zeros((8, 64)), torch.ones((8, 64)), lo, 128)

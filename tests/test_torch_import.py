@@ -56,10 +56,11 @@ def test_no_jax_and_nothing_of_the_jax_package():
         assert "jaxlib" not in roots, f"{path} imports jaxlib"
         assert "nadavca_tpu" not in roots, f"{path} imports nadavca_tpu"
         checked.add(os.path.relpath(path, REPO))
-    assert len(checked) >= 17
+    assert len(checked) >= 18
     for rel in ("nadavca_tpu_torch/ops/subst_tables.py",
                 "nadavca_tpu_torch/ops/cuda_rescore.py",
                 "nadavca_tpu_torch/ops/cuda_dp.py",
+                "nadavca_tpu_torch/joint.py",
                 "nadavca_tpu_torch/convert.py", "chip_smoke.py"):
         assert rel in checked, rel
 
@@ -77,9 +78,10 @@ def test_every_kernel_source_has_a_declared_entry_point():
                                    open(src).read()))
     declared = set(re.findall(r"lib\.(nadavca_\w+)\.argtypes",
                               open(kernel_build.__file__).read()))
-    assert exported == declared and len(exported) == 8, (exported ^ declared)
+    assert exported == declared and len(exported) == 11, (exported ^ declared)
     names = {os.path.basename(s) for s in kernel_build.sources()}
-    assert {"path_counts.cu", "shear_gather.cu", "rescore.cu"} <= names
+    assert {"path_counts.cu", "shear_gather.cu", "rescore.cu",
+            "viterbi_fill_pair.cu"} <= names
 
 
 def test_default_model_and_config_match_the_jax_package():

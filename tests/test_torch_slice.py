@@ -242,22 +242,13 @@ def test_default_config_runs_with_no_config_at_all():
     assert len(alns) == 16 and all(a.base_loglik is None for a in alns)
 
 
-@pytest.mark.parametrize("what", ["use_skip", "joint", "native", "pair_step"])
+@pytest.mark.parametrize("what", ["native"])
 def test_not_ported_yet_raises(what):
-    cfgs = {
-        "use_skip": nadavca_tpu_torch.AlignConfig(snp_rescore="fixed", use_skip=True),
-        "joint": nadavca_tpu_torch.AlignConfig(snp_rescore="fixed",
-                                               snp_joint_rescore=True),
-        "native": nadavca_tpu_torch.AlignConfig(snp_rescore="fixed"),
-        "pair_step": nadavca_tpu_torch.AlignConfig(snp_rescore="fixed",
-                                                   dp_pair_step=True),
-    }
-    kw = dict(prep="native") if what == "native" else {}
+    cfg = nadavca_tpu_torch.AlignConfig(snp_rescore="fixed")
     with pytest.raises(NotImplementedError):
-        tapi.call_snps(REF, DATA, cfgs[what], device="cpu", **kw)
-    if what != "joint":
-        with pytest.raises(NotImplementedError):
-            tapi.align_signal(REF, DATA, cfgs[what], device="cpu", **kw)
+        tapi.call_snps(REF, DATA, cfg, device="cpu", prep="native")
+    with pytest.raises(NotImplementedError):
+        tapi.align_signal(REF, DATA, cfg, device="cpu", prep="native")
 
 
 def test_unknown_backend_and_prep_raise():

@@ -69,8 +69,9 @@ KERNEL_INFO = {
     "backtrack_skip": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/backtrack.cu",
         replaces="nadavca_tpu/ops/pallas_dp.py:717"),
+    # the walk's counts epilogue, emitted by the backtrack's own launch
     "path_counts": dict(
-        route="cuda", source="nadavca_tpu_torch/csrc/path_counts.cu",
+        route="cuda", source="nadavca_tpu_torch/csrc/backtrack.cu",
         replaces="nadavca_tpu/ops/pallas_rescore.py:35"),
     "shear_gather": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/shear_gather.cu",
@@ -82,13 +83,14 @@ KERNEL_INFO = {
         route="cuda", source="nadavca_tpu_torch/csrc/rescore.cu",
         replaces="nadavca_tpu/ops/pallas_rescore.py:191"),
 }
-# the __global__ function behind each wrapper, as the profiler names it
+# the __global__ function behind each wrapper, as the profiler names it (the
+# counts run inside the walk's launch)
 DEVICE_FUNCTION = {
     "band_gather": "band_gather_kernel", "viterbi_fill": "viterbi_fill_kernel",
-    "backtrack": "backtrack_kernel", "path_counts": "path_counts_kernel",
+    "backtrack": "backtrack_kernel<", "path_counts": None,
     "viterbi_fill_skip": "viterbi_fill_skip_kernel",
     "viterbi_fill_pair": "viterbi_fill_pair_kernel",
-    "backtrack_skip": "backtrack_skip_kernel",
+    "backtrack_skip": "backtrack_skip_kernel<",
     "shear_gather": "shear_gather_kernel", "rescore_fill_tab": "rescore_tab_kernel",
     "rescore_fill": "rescore_kernel<",
 }
@@ -224,8 +226,10 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
         tag, "viterbi_fill", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_plain,
         fill_args, batch, ops_per_cell=8, reps=reps)
 
-    # --- backtrack: an integer walk over the same bits, so exact
-    out["backtrack"], _ = check_backtrack(tag, "backtrack", decs, v_fin, acc, a, C, reps)
+    # --- backtrack and its counts epilogue: an integer walk over the same
+    # bits, so exact
+    out["backtrack"], out["path_counts"], _ = check_backtrack(
+        tag, "backtrack", decs, v_fin, acc, a, C, cuda_rescore.count_lanes(N), reps)
     return out
 
 
@@ -261,33 +265,59 @@ def check_fill(tag, name, wrapper, plain, fill_args, batch, ops_per_cell, reps):
     return nums, decs, v_fin, acc
 
 
-def check_backtrack(tag, name, decs, v_fin, acc, a, C, reps):
-    """The walk over ``decs`` (one or two planes) against its plain version:
-    an integer walk over the same bits, so the paths are equal. Returns
-    (numbers, path)."""
+def check_backtrack(tag, name, decs, v_fin, acc, a, C, n_lanes, reps):
+    """The walk over ``decs`` (one or two planes) against its plain version,
+    without and with its counts epilogue over ``n_lanes``: an integer walk
+    over the same bits, so paths and counts are equal. The walk without and
+    with counts is timed in turns (without, with, with, without). Returns
+    (numbers of the walk, numbers of the counts, path)."""
     Tw, R, B = decs[0].shape
     T = Tw * 32
     n_chunks = T // C
+    t_len = a["t_len"]
     j_end, _ = cuda_dp.final_slot_and_score(v_fin, acc, a["lo"][:, -1], a["n_ref"])
-    path = cuda_dp.backtrack(decs, a["lo"], a["delta"], j_end, C)
+    walk = lambda: cuda_dp.backtrack(decs, a["lo"], a["delta"], j_end, C)
+    walk_counts = lambda: cuda_dp.backtrack(decs, a["lo"], a["delta"], j_end, C,
+                                            t_len=t_len, n_lanes=n_lanes)
+    path = walk()
+    path_c, cnt = walk_counts()
     sync()
     p_path, plain_ms = timed(
         lambda: cuda_dp.backtrack_plain(decs, a["lo"], a["delta"], j_end, C))
     n_diff = int((path != p_path).sum())
     assert n_diff == 0, f"{tag}: {name}: {n_diff} path entries differ"
+    assert torch.equal(path_c, path), f"{tag}: {name}: the walk with counts differs"
+    p_cnt, cnt_plain_ms = timed(lambda: cuda_dp.path_counts_plain(p_path, n_lanes, t_len))
+    n_diff = int((cnt != p_cnt).sum())
+    assert n_diff == 0, f"{tag}: {name}: {n_diff} counts differ"
     # what this run's data needs: one decision word per plane and (word row,
     # visited slot) along each path, the band tables, and the path written once
     lo_rep = torch.repeat_interleave(a["lo"], C, dim=1).long()
     key = (torch.arange(T, device="cuda")[None, :] // 32) * B + (path.long() - lo_rep)
     words = int((key[:, 1:] != key[:, :-1]).sum()) + R
     nbytes = len(decs) * words * 4 + 2 * R * n_chunks * 4 + R * 4 + R * T * 4
+    turns = [event_ms(f, reps) for f in (walk, walk_counts, walk_counts, walk)]
     # shift, mask, add, subtract per step and plane
     nums = dict(
-        max_abs_err=0.0,
-        ms=event_ms(lambda: cuda_dp.backtrack(decs, a["lo"], a["delta"], j_end, C), reps),
+        max_abs_err=0.0, ms=(turns[0] + turns[3]) / 2,
         plain_ms=plain_ms, library_ms=None,
-        **bound(nbytes, 4 * len(decs) * R * T), serial_steps=T, planes=len(decs))
-    return nums, path
+        **bound(nbytes, 4 * len(decs) * R * T),
+        ms_in_turns_without_counts=[turns[0], turns[3]],
+        ms_in_turns_with_counts=[turns[1], turns[2]],
+        chain_lookups=T // 32, planes=len(decs))
+    # yardstick of the counts: torch.searchsorted on the prebuilt sentinel
+    # path and lanes (the sentinel pass itself not timed)
+    live = torch.arange(T, device="cuda")[None, :] < t_len[:, None]
+    path_safe = torch.where(live, path, torch.full_like(path, n_lanes))
+    lanes = torch.arange(n_lanes, dtype=torch.int32,
+                         device="cuda")[None, :].expand(R, n_lanes).contiguous()
+    counts = dict(
+        max_abs_err=0.0, ms=(turns[1] + turns[2] - turns[0] - turns[3]) / 2,
+        plain_ms=cnt_plain_ms,
+        library_ms=event_ms(lambda: torch.searchsorted(path_safe, lanes), reps),
+        # what the epilogue adds: the counts written once and t_len read once
+        **bound(R * n_lanes * 4 + R * 4, 0), n_lanes=n_lanes)
+    return nums, counts, path
 
 
 def count_skips(path, t_len) -> int:
@@ -313,8 +343,10 @@ def check_skip_kernels(tag: str, batch, a, cfg, reps: int):
         tag, "viterbi_fill_skip", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_plain,
         args + (cfg,), batch, ops_per_cell=15, reps=reps)
     assert len(decs) == 2 and not bool((decs[0] & decs[1]).any())
-    out["backtrack_skip"], path = check_backtrack(
-        tag, "backtrack_skip", decs, v_fin, acc, a, C, reps)
+    out["backtrack_skip"], counts, path = check_backtrack(
+        tag, "backtrack_skip", decs, v_fin, acc, a, C,
+        cuda_rescore.count_lanes(batch.mu.shape[1]), reps)
+    out["backtrack_skip"]["counts_ms"] = counts["ms"]
     n_skips = count_skips(path, a["t_len"])
     assert n_skips > 0, f"{tag}: the skip paths hold no advance-by-2 step"
     out["backtrack_skip"]["advance_by_2_steps"] = n_skips
@@ -363,9 +395,10 @@ def live_close(tag, got, want):
     return float(diff.max())
 
 
-def check_rescore_kernels(tag: str, batch, a, path, cfg, tables, reps: int):
-    """K3-K6 against their plain versions on the card at this batch's shapes,
-    on the path the card's backtrack gave. Returns {kernel name: numbers}."""
+def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int):
+    """K4-K6 against their plain versions on the card at this batch's shapes,
+    on the path and counts the card's walk gave. Returns {kernel name:
+    numbers}."""
     R, T = batch.x.shape
     L = batch.codes.shape[1]
     N = batch.ids.shape[1]
@@ -373,26 +406,8 @@ def check_rescore_kernels(tag: str, batch, a, path, cfg, tables, reps: int):
     x, t_len, codes = a["x"], a["t_len"], a["codes"]
     out = {}
 
-    # --- K3 path counts: integer work, equal
-    Np = -(-(N + 1) // 128) * 128
-    tmask = torch.arange(T, device="cuda")[None, :] < t_len[:, None]
-    path_safe = torch.where(tmask, path, torch.full_like(path, Np))
-    cnt = cuda_rescore.path_counts(path_safe, Np, t_len)
-    sync()
-    p_cnt, plain_ms = timed(lambda: cuda_rescore.path_counts_plain(path_safe, Np, t_len))
-    n_diff = int((cnt != p_cnt).sum())
-    assert n_diff == 0, f"{tag}: path_counts: {n_diff} counts differ"
-    lanes = torch.arange(Np, dtype=torch.int32, device="cuda")[None, :].expand(R, Np).contiguous()
-    out["path_counts"] = dict(
-        max_abs_err=0.0,
-        ms=event_ms(lambda: cuda_rescore.path_counts(path_safe, Np, t_len), reps),
-        plain_ms=plain_ms,
-        # yardstick: torch.searchsorted on the prebuilt sentinel path and lanes
-        library_ms=event_ms(lambda: torch.searchsorted(path_safe, lanes), reps),
-        **bound(R * T * 4 + R * 4 + R * Np * 4, 0))
-
     # --- K4 shear gather: a gather computes nothing, so exact
-    S, W, kk, p_lo, _ = cuda_rescore.local_windows(path, t_len, codes, N, k, t_w)
+    S, W, kk, p_lo, _ = cuda_rescore.local_windows(path, t_len, codes, N, k, t_w, cnt)
     S_c = S.clamp(0, T - 1).contiguous()
     slab = T >= cuda_rescore.SPAN + 256
     xs = cuda_rescore.shear_gather(x, S_c, t_w, slab=slab)
@@ -488,16 +503,23 @@ def check_span_mask() -> dict:
         path[r, len(p):] = p[-1]
     arrs = [rng.normal(size=(R, T)).astype(np.float32), path, t_len, codes, ids,
             model.level_mean.astype(np.float32), model.level_std.astype(np.float32)]
+    # no walk made this path: its counts come from the plain version
+    cnt = cuda_dp.path_counts_plain(torch.from_numpy(path), cuda_rescore.count_lanes(N),
+                                    torch.from_numpy(t_len))
     on = lambda dev: cuda_rescore.base_loglik_local_cuda(
-        *(torch.from_numpy(v).to(dev) for v in arrs), k, cfg, t_w=t_w)
+        *(torch.from_numpy(v).to(dev) for v in arrs), k, cfg, t_w=t_w, cnt=cnt.to(dev))
     before = cuda_rescore.rescore_fill.launches
     got, want = on("cuda").cpu(), on("cpu")
     assert cuda_rescore.rescore_fill.launches == before + 1
     torch.testing.assert_close(got, want, rtol=RESCORE_RTOL, atol=RESCORE_ATOL)
+    t_short = np.minimum(t_len, 2303)
+    cnt_short = cuda_dp.path_counts_plain(
+        torch.from_numpy(np.ascontiguousarray(path[:, :2303])),
+        cuda_rescore.count_lanes(N), torch.from_numpy(t_short))
     short = lambda dev: cuda_rescore.base_loglik_local_cuda(
         *(torch.from_numpy(np.ascontiguousarray(v[:, :2303]) if v.shape == (R, T)
-                           else np.minimum(v, 2303) if v is t_len else v).to(dev)
-          for v in arrs), k, cfg, t_w=t_w)
+                           else t_short if v is t_len else v).to(dev)
+          for v in arrs), k, cfg, t_w=t_w, cnt=cnt_short.to(dev))
     unmasked = short("cuda").cpu()
     masked = (got == 0).all(2) & (unmasked != 0).any(2)
     assert masked[0].any() and masked[5].any() and not masked[1].any()
@@ -600,23 +622,21 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
     decs, v_fin, acc = st["fill"]
     split["final_slot"] = wall_ms(lambda: st.update(end=cuda_dp.final_slot_and_score(
         v_fin, acc, a["lo"][:, -1], a["n_ref"])))
-    split["backtrack"] = wall_ms(lambda: st.update(path=cuda_dp.backtrack(
-        decs, a["lo"], a["delta"], st["end"][0], C)))
-    path = st["path"]
-    # the local rescore as a whole, then its three kernels on the same inputs;
+    T = batch.x.shape[1]
+    N = batch.ids.shape[1]
+    # the walk with its counts epilogue, as the local rescore's path runs it
+    split["backtrack"] = wall_ms(lambda: st.update(walk=cuda_dp.backtrack(
+        decs, a["lo"], a["delta"], st["end"][0], C, t_len=a["t_len"],
+        n_lanes=cuda_rescore.count_lanes(N))))
+    path, cnt = st["walk"]
+    # the local rescore as a whole, then its two kernels on the same inputs;
     # what is left is the tensor code between them
     split["rescore_total"] = wall_ms(lambda: st.update(
         ll=cuda_rescore.base_loglik_local_cuda(
             a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
-            t_w=t_w, tables=tables, window_off=a["woff"])))
-    T = batch.x.shape[1]
-    N = batch.ids.shape[1]
-    Np = -(-(N + 1) // 128) * 128
-    tmask = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
-    path_safe = torch.where(tmask, path, torch.full_like(path, Np))
-    split["path_counts"] = wall_ms(
-        lambda: cuda_rescore.path_counts(path_safe, Np, a["t_len"]))
-    S, W, kk, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"], N, k, t_w)
+            t_w=t_w, tables=tables, window_off=a["woff"], cnt=cnt)))
+    S, W, kk, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"], N, k, t_w,
+                                                cnt)
     S_c = S.clamp(0, T - 1).contiguous()
     split["shear_gather"] = wall_ms(lambda: st.update(
         xs=cuda_rescore.shear_gather(a["x"], S_c, t_w)))
@@ -625,7 +645,7 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
         tables.tab, cfg, t_w))
     del st["xs"]
     split["rescore_glue"] = split["rescore_total"] - sum(
-        split[n] for n in ("path_counts", "shear_gather", "rescore"))
+        split[n] for n in ("shear_gather", "rescore"))
     n = batch.n_reads
     G = len(reference.contigs[0])
     accs = callmod.make_accumulators(G, with_votes=True, device="cuda")
@@ -639,7 +659,7 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
     callmod.call_snps(acc_g, cov_g, reference.contigs[0].codes,
                       reference.contigs[0].name, cfg, min_coverage=2, votes=votes_g)
     split["call"] = (time.perf_counter() - t0) * 1e3
-    return batch, a, path, st["end"][1], st["ll"], split
+    return batch, a, path, cnt, st["end"][1], st["ll"], split
 
 
 def profile_main_path(reference, raws, cfg, model, batch_reads,
@@ -667,7 +687,7 @@ def profile_main_path(reference, raws, cfg, model, batch_reads,
             "untraced_wall_ms": unprofiled_s * 1e3,
             "device_idle_share": 1.0 - busy_ms / (unprofiled_s * 1e3) if rows else None,
             "port_kernels_device_ms_per_launch": {
-                name: next((ms / c for k, ms, c in rows if fn in k), None)
+                name: next((ms / c for k, ms, c in rows if fn and fn in k), None)
                 for name, fn in DEVICE_FUNCTION.items()},
             "top_device_ms": [{"name": k[:60], "ms": ms, "count": c}
                               for k, ms, c in rows[:16]]}
@@ -774,7 +794,7 @@ def skip_phase(seed, model, n_reads, read_len, genome_len, batch_reads) -> dict:
 
     # (b) one batch stage by stage, and the scan twin under skip on the card
     tables = build_subst_tables(reference, model, device="cuda")
-    batch, a, path, score, base_ll, split = stage_split(
+    batch, a, path, _, score, base_ll, split = stage_split(
         records, reference, raws, model, cfg, batch_reads, tables)
     n = batch.n_reads
     T = batch.x.shape[1]
@@ -975,10 +995,11 @@ def main() -> int:
     top = sorted(records, key=lambda r: len(r.signal))[-batch_reads:]
     batch, a = staged_batch(top, model, cfg, subst=tables)
     main_nums = check_kernels("main", batch, a, cfg, reps=10)
-    res, _ = cuda_dp.cuda_viterbi_batch(a["x"], a["t_len"], a["mu"], a["sigma"],
-                                        a["n_ref"], a["lo"], a["delta"], cfg)
-    main_nums.update(check_rescore_kernels("main", batch, a, res.path, cfg, tables,
-                                           reps=10))
+    res, _ = cuda_dp.cuda_viterbi_batch(
+        a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"], a["delta"], cfg,
+        count_lanes=cuda_rescore.count_lanes(batch.mu.shape[1]))
+    main_nums.update(check_rescore_kernels("main", batch, a, res.path, res.counts, cfg,
+                                           tables, reps=10))
     del res
     batch_w, a_w = staged_batch(records_w, model, cfg_wide)
     wide_nums = check_kernels("wide", batch_w, a_w, cfg_wide, reps=5)
@@ -1040,7 +1061,20 @@ def main() -> int:
                  run_api(reference, sub, None, cfg, model, "cpu", batch_reads)[:2],
                  RESCORE_RTOL, RESCORE_ATOL)
     assert read_launches() == seen, "a CPU run must not launch a kernel"
-    del card_sub
+    # align_signal without probabilities runs no rescore: one walk per batch,
+    # without counts, and the same segments
+    reset_launches()
+    bare = api.align_reads(reference, sub, config=cfg, model=model, backend="cuda",
+                           batch_reads=batch_reads, prep="python", device="cuda",
+                           compute_probabilities=False)
+    sync()
+    bare_launches = read_launches()
+    expect_launches("align without probabilities", bare_launches, {
+        k_: -(-len(bare) // batch_reads) for k_ in ("band_gather", "viterbi_fill",
+                                                     "backtrack")})
+    for b, c in zip(bare, card_sub[1], strict=True):
+        assert b.base_loglik is None and np.array_equal(b.seg_start, c.seg_start)
+    del card_sub, bare
 
     # the fixed path of the first slice, at the same depth, on the card and on
     # the CPU
@@ -1059,8 +1093,8 @@ def main() -> int:
     cpu_compare_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    batch, a, path, _, base_ll, split = stage_split(records, reference, raws, model,
-                                                    cfg, batch_reads, tables)
+    batch, a, path, cnt, _, base_ll, split = stage_split(
+        records, reference, raws, model, cfg, batch_reads, tables)
     split["subst_build_once_per_genome"] = subst_build_ms
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     n = batch.n_reads
@@ -1095,7 +1129,7 @@ def main() -> int:
     # positions the span rule masks are 0 on the kernel side only
     S, _, _, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"],
                                                batch.ids.shape[1], k,
-                                               cfg.snp_local_window)
+                                               cfg.snp_local_window, cnt)
     S_c = S.clamp(0, T - 1)
     span_ok = (cuda_rescore.span_ok(S_c, T) if T >= cuda_rescore.SPAN + 256
                else torch.ones_like(interior))
@@ -1138,6 +1172,7 @@ def main() -> int:
           "reads_per_s_call_snps": len(alns) / snp_s,
           "launches": launches, "stage_ms_one_batch": split,
           "device_ms_one_batch": sum(split[k] for k in DEVICE_STAGES),
+          "launches_align_without_probabilities": bare_launches,
           "peak_device_mb_one_batch": peak_mb,
           "calls": len(calls), "planted": len(truth), "true_positive": tp,
           "recall": recall, "precision": tp / max(len(calls), 1),

@@ -130,11 +130,12 @@ def _run_batches(
     batch_reads: int,
     device,
     subst=None,
+    rescore: bool = True,
 ) -> Iterator[Tuple[List[ReadRecord], Batch, dict]]:
     for group in _batches(records, batch_reads):
         batch = assemble_batch(group, model, cfg)
         out = align_batch(batch, model, cfg, backend=backend, device=device,
-                          subst=subst)
+                          subst=subst, rescore=rescore)
         yield group, batch, out
 
 
@@ -169,7 +170,8 @@ def align_reads(
     order = {r.read_id: i for i, r in enumerate(records)}
     results: List[Optional[ReadAlignment]] = [None] * len(records)
     for group, batch, out in _run_batches(records, model, cfg, backend,
-                                          batch_reads, device, subst):
+                                          batch_reads, device, subst,
+                                          rescore=compute_probabilities):
         paths = out["path"].cpu().numpy()
         scores = out["score"].cpu().numpy()
         bll = out["base_loglik"].cpu().numpy() if compute_probabilities else None

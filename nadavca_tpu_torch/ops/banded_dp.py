@@ -43,6 +43,7 @@ class ViterbiResult(NamedTuple):
     score: torch.Tensor                 # (R,) float32 best final log-likelihood
     path: Optional[torch.Tensor]        # (R, T) int32 reference k-mer position per sample
     final_j: torch.Tensor               # (R,) int32 argmax band slot at the end
+    counts: Optional[torch.Tensor] = None   # (R, n_lanes) int32 segment counts, on request
 
 
 def _band_gather(arr, idx, fill):

@@ -11,6 +11,8 @@ same contract:
   ``viterbi_fill_pair``  csrc/viterbi_fill_pair.cu  ``viterbi_fill_pair_plain``
   ``backtrack``          csrc/backtrack.cu          ``backtrack_plain``
   ``backtrack_skip``     csrc/backtrack.cu          ``backtrack_plain`` (two planes)
+  ``path_counts``        csrc/backtrack.cu          ``path_counts_plain`` (the walk's
+                                                    counts, emitted by either walk)
 
 A wrapper checks its arguments, then looks at where the tensors lie: on the
 CPU it runs the plain version; on a CUDA device it launches the kernel on the
@@ -30,7 +32,7 @@ j - 1; with the skip transition a second plane marks predecessor j - 2.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -451,8 +453,9 @@ viterbi_fill_pair.launches = 0
 
 # ----------------------------------------------------------------- backtrack
 def backtrack_plain(decs, lo, delta, j_end, chunk_size: int):
-    """Plain version of :func:`backtrack` and :func:`backtrack_skip`: a Python
-    loop down t with one (R,)-gather per plane and step."""
+    """Plain version of the path of :func:`backtrack` and
+    :func:`backtrack_skip`: a Python loop down t with one (R,)-gather per
+    plane and step."""
     Tw, R, B = decs[0].shape
     T = Tw * 32
     C = chunk_size
@@ -481,7 +484,36 @@ def backtrack_plain(decs, lo, delta, j_end, chunk_size: int):
     return path.to(torch.int32)
 
 
-def _backtrack_prologue(name, decs, n_planes, lo, delta, j_end, chunk_size):
+def path_counts_plain(path, n_lanes: int, t_len):
+    """Plain version of the walk's counts: ``C[r, i] = #{t < t_len[r] :
+    path[r, t] < i}`` for i in [0, n_lanes), a searchsorted on the path with
+    the samples at or past ``t_len`` set to a sentinel that is never counted
+    — the contract of ``path_counts_pallas``. Returns (R, n_lanes) i32."""
+    R, T = path.shape
+    dev = path.device
+    live = torch.arange(T, device=dev)[None, :] < t_len.to(torch.int64)[:, None]
+    p = torch.where(live, path.to(torch.int64),
+                    torch.full((), n_lanes, dtype=torch.int64, device=dev))
+    lanes = torch.arange(n_lanes, dtype=torch.int64, device=dev)[None, :]
+    return torch.searchsorted(p.contiguous(), lanes.expand(R, n_lanes).contiguous(),
+                              right=False).to(torch.int32)
+
+
+class _Epilogue:
+    """The launch count of work that runs inside another kernel's launch."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# the walk's counts epilogue (K3 of the TPU package): one launch per walk that
+# emitted counts
+path_counts = _Epilogue("path_counts")
+
+
+def _backtrack_prologue(name, decs, n_planes, lo, delta, j_end, chunk_size,
+                        t_len, n_lanes):
     if not isinstance(decs, (tuple, list)) or len(decs) != n_planes:
         raise ValueError(f"{name}: expected a tuple of {n_planes} decision "
                          f"plane(s)")
@@ -500,67 +532,86 @@ def _backtrack_prologue(name, decs, n_planes, lo, delta, j_end, chunk_size):
     _check("lo", lo, torch.int32, (R, n_chunks), dev)
     _check("delta", delta, torch.int32, (R, n_chunks), dev)
     _check("j_end", j_end, torch.int32, (R,), dev)
+    if (t_len is None) != (n_lanes is None):
+        raise ValueError(f"{name}: t_len and n_lanes go together")
+    if t_len is not None:
+        _check("t_len", t_len, torch.int32, (R,), dev)
+        if int(n_lanes) < 1:
+            raise ValueError(f"n_lanes must be positive, got {n_lanes}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and (B % 32 != 0 or not 32 <= B <= 256):
+        raise ValueError(f"{name}: the kernel takes band widths 32..256 in steps "
+                         f"of 32, got {B}")
     return R, T, C, B
 
 
-def backtrack(decs, lo: torch.Tensor, delta: torch.Tensor,
-              j_end: torch.Tensor, chunk_size: int) -> torch.Tensor:
-    """Per-sample reference positions from the packed decision words.
+def _walk(name, wrapper, n_planes, decs, lo, delta, j_end, chunk_size, t_len,
+          n_lanes):
+    """The body of :func:`backtrack` and :func:`backtrack_skip`."""
+    R, T, C, B = _backtrack_prologue(name, decs, n_planes, lo, delta, j_end,
+                                     chunk_size, t_len, n_lanes)
+    counts = t_len is not None
+    dev = decs[0].device
+    if dev.type == "cpu":
+        path = backtrack_plain(decs, lo, delta, j_end, C)
+        return (path, path_counts_plain(path, int(n_lanes), t_len)) if counts else path
+    lib = kernel_build.load_library()
+    path = torch.empty((R, T), dtype=torch.int32, device=dev)
+    cnt = torch.empty((R, int(n_lanes)), dtype=torch.int32, device=dev) if counts else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    planes = tuple(d.data_ptr() for d in decs)
+    with torch.cuda.device(dev):
+        code = getattr(lib, "nadavca_" + name)(
+            *planes, lo.data_ptr(), delta.data_ptr(), j_end.data_ptr(), ptr(t_len),
+            path.data_ptr(), ptr(cnt), R, T, C, B, int(n_lanes) if counts else 0,
+            _stream(dev))
+    kernel_build.check_launch(lib, code, name)
+    wrapper.launches += 1
+    if counts:
+        path_counts.launches += 1
+        return path, cnt
+    return path
+
+
+def backtrack(decs, lo: torch.Tensor, delta: torch.Tensor, j_end: torch.Tensor,
+              chunk_size: int, t_len: Optional[torch.Tensor] = None,
+              n_lanes: Optional[int] = None):
+    """Per-sample reference positions from the packed decision words, and on
+    request the path's segment counts.
 
     decs: the plane tuple of :func:`viterbi_fill`, each (T/32, R, B) i32; lo,
     delta (R, n_chunks) i32; j_end (R,) i32 the final band slot. Returns path
     (R, T) i32 with ``path[r, t] = lo[r, t // C] + j[t]`` — the return value
-    of ``backtrack_pallas`` (kernel and epilogue together). Two planes go to
-    :func:`backtrack_skip`; what is launched and counted here is the one-plane
-    walk.
+    of ``backtrack_pallas`` (kernel and epilogue together). With ``t_len``
+    (R,) i32 and ``n_lanes``, returns (path, cnt) with cnt (R, n_lanes) i32
+    the counts of :func:`path_counts_plain` — the contract of
+    ``path_counts_pallas`` — emitted by the same launch. Two planes go to
+    :func:`backtrack_skip`; what is launched and counted here is the
+    one-plane walk. On CUDA tensors B is a multiple of 32 up to 256.
     """
     if isinstance(decs, (tuple, list)) and len(decs) == 2:
-        return backtrack_skip(decs, lo, delta, j_end, chunk_size)
-    R, T, C, B = _backtrack_prologue("backtrack", decs, 1, lo, delta, j_end,
-                                     chunk_size)
-    dev = decs[0].device
-    if dev.type == "cpu":
-        return backtrack_plain(decs, lo, delta, j_end, C)
-    lib = kernel_build.load_library()
-    path = torch.empty((R, T), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.nadavca_backtrack(
-            decs[0].data_ptr(), lo.data_ptr(), delta.data_ptr(),
-            j_end.data_ptr(), path.data_ptr(), R, T, C, B, _stream(dev))
-    kernel_build.check_launch(lib, code, "backtrack")
-    backtrack.launches += 1
-    return path
+        return backtrack_skip(decs, lo, delta, j_end, chunk_size, t_len, n_lanes)
+    return _walk("backtrack", backtrack, 1, decs, lo, delta, j_end, chunk_size,
+                 t_len, n_lanes)
 
 
 backtrack.launches = 0
 
 
-def backtrack_skip(decs, lo, delta, j_end, chunk_size: int) -> torch.Tensor:
+def backtrack_skip(decs, lo, delta, j_end, chunk_size: int,
+                   t_len: Optional[torch.Tensor] = None,
+                   n_lanes: Optional[int] = None):
     """The walk over two decision planes: the advance at the pointer is
     ``bit0 + 2 * bit1``. Arguments and result as :func:`backtrack`."""
-    R, T, C, B = _backtrack_prologue("backtrack_skip", decs, 2, lo, delta,
-                                     j_end, chunk_size)
-    dev = decs[0].device
-    if dev.type == "cpu":
-        return backtrack_plain(decs, lo, delta, j_end, C)
-    lib = kernel_build.load_library()
-    path = torch.empty((R, T), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.nadavca_backtrack_skip(
-            decs[0].data_ptr(), decs[1].data_ptr(), lo.data_ptr(),
-            delta.data_ptr(), j_end.data_ptr(), path.data_ptr(), R, T, C, B,
-            _stream(dev))
-    kernel_build.check_launch(lib, code, "backtrack_skip")
-    backtrack_skip.launches += 1
-    return path
+    return _walk("backtrack_skip", backtrack_skip, 2, decs, lo, delta, j_end,
+                 chunk_size, t_len, n_lanes)
 
 
 backtrack_skip.launches = 0
 
 KERNELS = (band_gather, viterbi_fill, backtrack, viterbi_fill_skip,
-           viterbi_fill_pair, backtrack_skip)
+           viterbi_fill_pair, backtrack_skip, path_counts)
 
 
 def reset_launches() -> None:
@@ -584,13 +635,16 @@ def final_slot_and_score(v_fin, acc, lo_last, n_ref):
 
 
 def cuda_viterbi_batch(x, t_len, mu, sigma, n_ref, lo, delta, cfg: AlignConfig,
-                       with_path: bool = True, mu_band=None, sg_band=None):
+                       with_path: bool = True, mu_band=None, sg_band=None,
+                       count_lanes: Optional[int] = None):
     """Band gather → fill → score (→ backtrack), twin of
     ``pallas_viterbi_batch``.
 
     Same contract as ``banded_dp.banded_viterbi_batch`` but taking chunked
     bands (lo, delta (R, n_chunks) from ``sched.build_chunked_bands``).
     Returns (ViterbiResult, decs) with ``decs`` the tuple of decision planes.
+    With ``count_lanes`` the walk also emits the path's segment counts over
+    that many lanes into ``ViterbiResult.counts``.
     """
     if mu_band is None:
         mu_band, sg_band = band_gather(mu, sigma, lo, cfg.band_width)
@@ -599,5 +653,9 @@ def cuda_viterbi_batch(x, t_len, mu, sigma, n_ref, lo, delta, cfg: AlignConfig,
     j_end, score = final_slot_and_score(v_fin, acc, lo[:, -1], n_ref)
     if not with_path:
         return ViterbiResult(score=score, path=None, final_j=j_end), decs
-    path = backtrack(decs, lo, delta, j_end, cfg.signal_chunk)
-    return ViterbiResult(score=score, path=path, final_j=j_end), decs
+    if count_lanes is None:
+        path = backtrack(decs, lo, delta, j_end, cfg.signal_chunk)
+        return ViterbiResult(score=score, path=path, final_j=j_end), decs
+    path, cnt = backtrack(decs, lo, delta, j_end, cfg.signal_chunk, t_len=t_len,
+                          n_lanes=count_lanes)
+    return ViterbiResult(score=score, path=path, final_j=j_end, counts=cnt), decs

@@ -1,10 +1,9 @@
-"""The four kernels of the local re-DP rescore: wrappers and plain versions.
+"""The kernels of the local re-DP rescore: wrappers and plain versions.
 
 Counterpart of ``nadavca_tpu/ops/pallas_rescore.py``. Each TPU kernel has a
 hand-written CUDA kernel under ``csrc/`` and, beside its wrapper here, a plain
 PyTorch version with the same contract:
 
-  ``path_counts``       csrc/path_counts.cu    plain: ``path_counts_plain``
   ``shear_gather``      csrc/shear_gather.cu   plain: ``shear_gather_plain``
   ``rescore_fill_tab``  csrc/rescore.cu        plain: ``rescore_fill_tab_plain``
   ``rescore_fill``      csrc/rescore.cu        plain: ``rescore_fill_plain``
@@ -13,10 +12,15 @@ As in ``ops/cuda_dp``: a wrapper checks its arguments, runs the plain version
 on CPU tensors, launches the kernel on CUDA tensors or raises, never falls
 back, and counts its launches in ``<wrapper>.launches``.
 
-``base_loglik_local_cuda`` strings them together: path → segment bounds (K3) →
-per-position sample windows (K4) → the local DP per substitution (K5 with
-genome tables, K6 with per-batch constants). What lies between the kernels is
-plain tensor code, as it is XLA code in the JAX package.
+The TPU's path counts (K3, ``path_counts_pallas``) are emitted by the walk
+that makes the path (``ops/cuda_dp.backtrack`` with ``t_len`` and
+``n_lanes``, ``csrc/backtrack.cu``); their plain version is
+``cuda_dp.path_counts_plain``.
+
+``base_loglik_local_cuda`` strings them together: segment counts (from the
+walk) → per-position sample windows (K4) → the local DP per substitution (K5
+with genome tables, K6 with per-batch constants). What lies between the
+kernels is plain tensor code, as it is XLA code in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from ..config import AlignConfig
 from ..utils import kernel_build
 from .banded_dp import NEG_INF
-from .cuda_dp import _check, _stream
+from .cuda_dp import _check, _stream, path_counts_plain
 from .subst_tables import SubstTables
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -42,53 +46,11 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-# --------------------------------------------------------------- path counts
-def path_counts_plain(path_safe, n_lanes: int, t_len):
-    """Plain version of :func:`path_counts`."""
-    R, T = path_safe.shape
-    dev = path_safe.device
-    live = torch.arange(T, device=dev)[None, :] < t_len.to(torch.int64)[:, None]
-    p = torch.where(live, path_safe.to(torch.int64),
-                    torch.full((), n_lanes, dtype=torch.int64, device=dev))
-    lanes = torch.arange(n_lanes, dtype=torch.int64, device=dev)[None, :]
-    return torch.searchsorted(p.contiguous(), lanes.expand(R, n_lanes).contiguous(),
-                              right=False).to(torch.int32)
-
-
-def path_counts(path_safe: torch.Tensor, n_lanes: int,
-                t_len: torch.Tensor) -> torch.Tensor:
-    """``C[r, i] = #{t < t_len[r] : path_safe[r, t] < i}`` for i in [0, n_lanes).
-
-    path_safe (R, T) i32, nondecreasing over each read's first ``t_len[r]``
-    samples (what lies beyond is never counted); t_len (R,) i32. Returns
-    (R, n_lanes) i32 — searchsorted-left on a monotone path, the contract of
-    ``path_counts_pallas``.
-    """
-    dev = path_safe.device
-    if path_safe.dim() != 2:
-        raise ValueError(f"path_safe: expected (R, T), got {tuple(path_safe.shape)}")
-    R, T = path_safe.shape
-    n_lanes = int(n_lanes)
-    if n_lanes < 1:
-        raise ValueError(f"n_lanes must be positive, got {n_lanes}")
-    _check("path_safe", path_safe, torch.int32, (R, T), dev)
-    _check("t_len", t_len, torch.int32, (R,), dev)
-    if dev.type == "cpu":
-        return path_counts_plain(path_safe, n_lanes, t_len)
-    if dev.type != "cuda":
-        raise ValueError(f"path_counts: unsupported device {dev}")
-    lib = kernel_build.load_library()
-    cnt = torch.empty((R, n_lanes), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.nadavca_path_counts(
-            path_safe.data_ptr(), t_len.data_ptr(), cnt.data_ptr(),
-            R, T, n_lanes, _stream(dev))
-    kernel_build.check_launch(lib, code, "path_counts")
-    path_counts.launches += 1
-    return cnt
-
-
-path_counts.launches = 0
+def count_lanes(n_pos: int) -> int:
+    """Lanes of the segment counts over ``n_pos`` window positions: index i
+    runs 0..n_pos so that a position's start and end come from one row,
+    padded to a multiple of 128 (the TPU's lane tile)."""
+    return _round_up(n_pos + 1, 128)
 
 
 # -------------------------------------------------------------- shear gather
@@ -325,7 +287,7 @@ def rescore_fill(xs: torch.Tensor, em: torch.Tensor, mu: torch.Tensor,
 
 rescore_fill.launches = 0
 
-KERNELS = (path_counts, shear_gather, rescore_fill_tab, rescore_fill)
+KERNELS = (shear_gather, rescore_fill_tab, rescore_fill)
 
 
 def reset_launches() -> None:
@@ -334,27 +296,33 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------- the local rescore
-def local_windows(path, t_len, window_codes, N: int, k: int, t_w: int):
+def local_windows(path, t_len, window_codes, N: int, k: int, t_w: int,
+                  cnt: Optional[torch.Tensor] = None):
     """Window bounds of every position from the global path.
 
-    Runs K3 and the tensor code around it. ``window_codes`` (R, L) is already
-    padded to a multiple of 128. Returns (S, W, kk, p_lo, valid_i), each
-    (R, L): first sample and length (<= t_w) of the window, number of live
-    slots, first k-mer position of the window, and whether position i is
-    inside the path's span with a real base.
+    ``window_codes`` (R, L) is already padded to a multiple of 128. ``cnt``
+    (R, count_lanes(N)) i32 are the path's segment counts, as the walk emits
+    them; on CPU tensors they may be left out and are then computed by
+    ``path_counts_plain``, on CUDA tensors they must come from the walk.
+    Returns (S, W, kk, p_lo, valid_i), each (R, L): first sample and length
+    (<= t_w) of the window, number of live slots, first k-mer position of
+    the window, and whether position i is inside the path's span with a real
+    base.
     """
     R, T = path.shape
     L = window_codes.shape[1]
     dev = path.device
-    # the path is monotone over live samples, so segment bounds are bisection
-    # counts: start[i] = #{t : path[t] < i}, end[i] = start[i + 1]. Count
+    # the path is monotone over live samples, so segment bounds are counts:
+    # start[i] = #{t < t_len : path[t] < i}, end[i] = start[i + 1]. Count
     # index i runs 0..N so both bounds come from one array.
-    tmask = torch.arange(T, device=dev)[None, :] < t_len[:, None]
-    Np = _round_up(N + 1, 128)
-    # sentinel >= Np: padded samples never count
-    path_safe = torch.where(tmask, path, torch.full((), Np, dtype=torch.int32,
-                                                    device=dev))
-    cnt = path_counts(path_safe, Np, t_len)                     # (R, Np)
+    Np = count_lanes(N)
+    if cnt is None:
+        if dev.type != "cpu":
+            raise ValueError("local_windows: on a CUDA device the segment counts "
+                             "come from the walk (cuda_dp.backtrack with t_len "
+                             "and n_lanes)")
+        cnt = path_counts_plain(path, Np, t_len)
+    _check("cnt", cnt, torch.int32, (R, Np), dev)
 
     first_pos = path[:, 0]
     last_t = (t_len - 1).clamp(min=0).to(torch.int64)
@@ -429,6 +397,7 @@ def base_loglik_local_cuda(
     t_w: int = 192,
     tables: Optional[SubstTables] = None,
     window_off: Optional[torch.Tensor] = None,   # (R,) i32 table column per read
+    cnt: Optional[torch.Tensor] = None,          # (R, count_lanes(N)) i32 from the walk
 ) -> torch.Tensor:
     """(R, L, 4) base log-likelihoods — kernel version of
     ``banded_dp.base_loglik_local_batch``, twin of ``base_loglik_local_pallas``.
@@ -437,6 +406,9 @@ def base_loglik_local_cuda(
     positions whose window is clipped by the read's ends (``kk < k``) or
     invalid in the genome are masked to exactly 0. Without, they are built per
     batch (K6) and edge positions are scored like the ``scan`` twin's.
+
+    ``cnt`` are the path's segment counts as the walk emitted them (see
+    :func:`local_windows`: required on CUDA tensors).
 
     The span mask: where T >= 2048 + 256 the sample windows are gathered
     under the slab rule, and a position whose window start lies 2048 samples
@@ -457,7 +429,8 @@ def base_loglik_local_cuda(
         window_codes = torch.nn.functional.pad(window_codes, (0, L - L_in), value=4)
     window_codes = window_codes.contiguous()
 
-    S, W, kk, p_lo, valid_i = local_windows(path, t_len, window_codes, N, k, t_w)
+    S, W, kk, p_lo, valid_i = local_windows(path, t_len, window_codes, N, k, t_w,
+                                            cnt)
 
     # ---- xs: per-position sample windows
     S_c = S.clamp(0, T - 1).contiguous()

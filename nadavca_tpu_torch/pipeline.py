@@ -266,20 +266,24 @@ def check_supported(cfg: AlignConfig) -> None:
 def device_compute(
     x, t_len, mu, sigma, n_ref, lo, delta, mu_b, sg_b, codes, ids, lm, ls,
     woff, subst,
-    cfg: AlignConfig, backend: str, k: int,
+    cfg: AlignConfig, backend: str, k: int, rescore: bool = True,
 ):
     """The per-device compute body: banded Viterbi, then the rescore.
 
     lo/delta are always chunked (R, n_chunks); the scan backend expands them
     here. ``woff`` (R,) i32 and ``subst`` (the genome's ``SubstTables``) are
-    None off the tables path. Returns (score (R,), path (R, T) i32, base_ll
-    (R, L, 4)).
+    None off the tables path. Under backend ``"cuda"`` with the local rescore
+    the walk also emits the path's segment counts, which the rescore takes.
+    Returns (score (R,), path (R, T) i32, base_ll (R, L, 4), or None when
+    ``rescore`` is False).
     """
     check_supported(cfg)
+    local = rescore and cfg.snp_rescore == "local"
     if backend == "cuda":
         res, _ = cuda_dp.cuda_viterbi_batch(
             x, t_len, mu, sigma, n_ref, lo, delta, cfg,
-            mu_band=mu_b, sg_band=sg_b)
+            mu_band=mu_b, sg_band=sg_b,
+            count_lanes=cuda_rescore.count_lanes(ids.shape[1]) if local else None)
     elif backend == "scan":
         T = x.shape[1]
         lo_full = torch.repeat_interleave(lo, cfg.signal_chunk, dim=1)[:, :T]
@@ -287,11 +291,14 @@ def device_compute(
             x, t_len, mu, sigma, n_ref, lo_full, cfg)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.snp_rescore == "local":
+    if not rescore:
+        base_ll = None
+    elif local:
         if backend == "cuda":
             base_ll = cuda_rescore.base_loglik_local_cuda(
                 x, res.path, t_len, codes, ids, lm, ls, k, cfg,
-                t_w=cfg.snp_local_window, tables=subst, window_off=woff)
+                t_w=cfg.snp_local_window, tables=subst, window_off=woff,
+                cnt=res.counts)
         else:
             base_ll = banded_dp.base_loglik_local_batch(
                 x, res.path, t_len, codes, ids, lm, ls, k, cfg,
@@ -356,13 +363,15 @@ def align_batch(
     device="cuda",
     subst=None,
     staged: Optional[dict] = None,
+    rescore: bool = True,
 ):
     """Run the device part on one batch: DP + base log-likelihoods.
 
     backend: "auto" or "cuda" (the kernels), "scan". ``subst``: the genome's
     substitution tables for the local rescore. Pass ``staged`` (from
     :func:`stage_batch`) to skip the in-line upload. Returns a dict of tensors
-    on the device: score (R,), path (R, T), base_loglik (R, L, 4).
+    on the device: score (R,), path (R, T), base_loglik (R, L, 4), or None
+    without ``rescore``.
     """
     a = staged if staged is not None else stage_batch(
         batch, model, cfg, backend, device=device, subst=subst)
@@ -370,6 +379,7 @@ def align_batch(
         a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"],
         a["delta"], a["mu_b"], a["sg_b"], a["codes"], a["ids"], a["lm"],
         a["ls"], a["woff"], a["subst"], cfg=cfg, backend=a["backend"], k=a["k"],
+        rescore=rescore,
     )
     return {
         "score": score,

@@ -133,12 +133,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nadavca_viterbi_fill_pair.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, f, f, f, f, f, p]
     lib.nadavca_viterbi_fill_pair.restype = i
-    lib.nadavca_backtrack.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.nadavca_backtrack.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.nadavca_backtrack.restype = i
-    lib.nadavca_backtrack_skip.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.nadavca_backtrack_skip.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.nadavca_backtrack_skip.restype = i
-    lib.nadavca_path_counts.argtypes = [p, p, p, i, i, i, p]
-    lib.nadavca_path_counts.restype = i
     lib.nadavca_shear_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.nadavca_shear_gather.restype = i
     lib.nadavca_rescore_tab.argtypes = [p, p, p, p, p, p, p,

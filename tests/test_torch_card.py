@@ -75,9 +75,22 @@ def test_kernels_match_plain_versions(card, B):
     j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
     path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
     assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
-    want = {k: n + (k in ("band_gather", "viterbi_fill", "backtrack"))
-            for k, n in before.items()}
+    _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
+    want = {k: n + (k in ("band_gather", "viterbi_fill", "path_counts"))
+            + 2 * (k == "backtrack") for k, n in before.items()}
     assert _launches() == want
+
+
+def _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path):
+    """The walk with counts: the same path, and the plain version's counts,
+    t_len of 0 included."""
+    t_cnt = t_len.clone()
+    t_cnt[4] = 0
+    n_lanes = int(lo_t.max()) + decs[0].shape[2] + 8
+    path_c, cnt = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C, t_len=t_cnt,
+                                    n_lanes=n_lanes)
+    assert torch.equal(path_c, path)
+    assert torch.equal(cnt, cuda_dp.path_counts_plain(path, n_lanes, t_cnt))
 
 
 @pytest.mark.parametrize("B", [128, 256])
@@ -97,6 +110,7 @@ def test_skip_and_pair_kernels_match_plain_versions(card, B):
     j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
     path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
     assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+    _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
     live = torch.arange(path.shape[1], device=card)[None, 1:] < t_len[:, None]
     step = (path[:, 1:] - path[:, :-1]) * live
     assert int(step.max()) == 2 and int(step.min()) >= 0
@@ -122,7 +136,8 @@ def test_skip_and_pair_kernels_match_plain_versions(card, B):
                                rtol=1e-5, atol=2e-3)
     torch.cuda.synchronize()
     want = dict(before, viterbi_fill_skip=before["viterbi_fill_skip"] + 2,
-                backtrack_skip=before["backtrack_skip"] + 1,
+                backtrack_skip=before["backtrack_skip"] + 2,
+                path_counts=before["path_counts"] + 1,
                 viterbi_fill_pair=before["viterbi_fill_pair"] + 1,
                 viterbi_fill=before["viterbi_fill"] + 1)
     assert _launches() == want
@@ -163,15 +178,26 @@ def test_rescore_kernels_match_plain_versions(card, k):
     cfg = AlignConfig(k=k)
     d = _rescore_inputs(card, R, L, T, t_w, k, seed=k)
     before = [kern.launches for kern in cuda_rescore.KERNELS]
+    counts_before = cuda_dp.path_counts.launches
 
-    # K3: integer work, equal
+    # K3, the walk's counts on random words and a band that moves: integer
+    # work, equal
     rng = np.random.default_rng(1)
-    path = np.cumsum(rng.random((R, T)) < 0.1, axis=1).astype(np.int32)
-    t_len = np.asarray([T, 1, 0, T // 2, T - 7], np.int32)
-    path_t = torch.from_numpy(path).to(card)
-    t_len_t = torch.from_numpy(t_len).to(card)
-    cnt = cuda_rescore.path_counts(path_t, 384, t_len_t)
-    assert torch.equal(cnt, cuda_rescore.path_counts_plain(path_t, 384, t_len_t))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    Tc, C, B = 3072, 128, 128
+    dec = np.packbits(rng.random((Tc // 32, R, B, 32)) < 0.12, axis=-1,
+                      bitorder="little").view(np.int32)[..., 0]
+    dl = rng.integers(0, 20, (R, Tc // C)).astype(np.int32)
+    dl[:, 0] = 0
+    lo_c = np.cumsum(dl, axis=1).astype(np.int32)
+    j_end = put(rng.integers(0, B, R).astype(np.int32))
+    t_len_t = put(np.asarray([Tc, 1, 0, Tc // 2, Tc - 7], np.int32))
+    decs = (put(dec),)
+    path_t, cnt = cuda_dp.backtrack(decs, put(lo_c), put(dl), j_end, C, t_len=t_len_t,
+                                    n_lanes=384)
+    p_path = cuda_dp.backtrack_plain(decs, put(lo_c), put(dl), j_end, C)
+    assert torch.equal(path_t, p_path)
+    assert torch.equal(cnt, cuda_dp.path_counts_plain(p_path, 384, t_len_t))
 
     # K4: a gather, equal; without the slab rule, and with it on a wide S
     xs = cuda_rescore.shear_gather(d["x"], d["S"], t_w, slab=False)
@@ -197,9 +223,27 @@ def test_rescore_kernels_match_plain_versions(card, k):
     assert float(((got - want).abs() * live).max()) <= 1e-4
     torch.cuda.synchronize()
     assert [kern.launches for kern in cuda_rescore.KERNELS] == [
-        b + n for b, n in zip(before, (1, 2, 1, 1))]
+        b + n for b, n in zip(before, (2, 1, 1))]
+    assert cuda_dp.path_counts.launches == counts_before + 1
     with pytest.raises(ValueError, match="leave the table"):
         cuda_rescore.rescore_fill_tab(*args, d["woff"] + 1, d["tab"], cfg, t_w)
+
+
+def test_local_windows_on_the_card_needs_the_walks_counts(card):
+    """On a CUDA tensor the segment counts come from the walk: without them
+    the rescore raises, and there is no second route that computes them."""
+    from nadavca_tpu_torch.ops import cuda_rescore
+
+    R, T, L, k = 2, 512, 128, 6
+    path = torch.arange(T, dtype=torch.int32, device=card).repeat(R, 1) // 8
+    t_len = torch.full((R,), T, dtype=torch.int32, device=card)
+    codes = torch.zeros((R, L), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="come from the walk"):
+        cuda_rescore.local_windows(path, t_len, codes, L - k + 1, k, 32)
+    cnt = cuda_dp.path_counts_plain(path, cuda_rescore.count_lanes(L - k + 1), t_len)
+    S, W, _, _, _ = cuda_rescore.local_windows(path, t_len, codes, L - k + 1, k, 32,
+                                               cnt=cnt)
+    assert S[0, :8].tolist() == [0, 0, 0, 0, 0, 0, 8, 16] and int(W[0, 0]) == 8
 
 
 def test_a_cpu_run_launches_no_kernel(card):

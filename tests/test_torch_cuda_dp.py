@@ -16,7 +16,7 @@ torch.set_num_threads(1)
 from nadavca_tpu.config import AlignConfig as JaxConfig
 from nadavca_tpu.io.simulator import random_genome, simulate_read
 from nadavca_tpu.kmer_model import default_model
-from nadavca_tpu.ops import pallas_dp
+from nadavca_tpu.ops import pallas_dp, pallas_rescore
 from nadavca_tpu.sched import build_chunked_bands
 
 from nadavca_tpu_torch.config import AlignConfig
@@ -151,6 +151,26 @@ def test_backtrack_matches_pallas(case):
         torch.from_numpy(case["final_j"].astype(np.int32)), 128)
     # an integer walk over the same bits: exact, padding samples included
     np.testing.assert_array_equal(path_t.numpy(), case["path"])
+
+
+def test_backtrack_counts_match_pallas(case):
+    """The walk with counts: the path as before, and the counts of
+    ``path_counts_pallas`` on the JAX package's own path."""
+    t = case["t"]
+    n_lanes = max(256, 128 * ((int(case["path"].max()) + 2 + 127) // 128))
+    before = cuda_dp.path_counts.launches
+    path_t, cnt = cuda_dp.backtrack(
+        (torch.from_numpy(case["dec"]),), t["lo"], t["delta"],
+        torch.from_numpy(case["final_j"].astype(np.int32)), 128,
+        t_len=t["t_len"], n_lanes=n_lanes)
+    np.testing.assert_array_equal(path_t.numpy(), case["path"])
+    t_len = case["np"]["t_len"]
+    live = np.arange(case["path"].shape[1])[None, :] < t_len[:, None]
+    path_safe = np.where(live, case["path"], n_lanes).astype(np.int32)
+    want = np.asarray(pallas_rescore.path_counts_pallas(
+        jnp.asarray(path_safe), n_lanes, t_len=jnp.asarray(t_len), interpret=True))
+    np.testing.assert_array_equal(cnt.numpy(), want)
+    assert cuda_dp.path_counts.launches == before, "no kernel on the CPU"
 
 
 def test_cuda_viterbi_batch_matches_pallas(case):

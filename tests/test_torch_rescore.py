@@ -34,7 +34,7 @@ from nadavca_tpu_torch import convert
 from nadavca_tpu_torch import pipeline as tpipe
 from nadavca_tpu_torch.config import AlignConfig
 from nadavca_tpu_torch.ops import banded_dp as tbanded
-from nadavca_tpu_torch.ops import cuda_rescore
+from nadavca_tpu_torch.ops import cuda_dp, cuda_rescore
 
 JCFG = JaxConfig(read_tile=8)
 TCFG = AlignConfig(read_tile=8)
@@ -84,21 +84,22 @@ def _paths(seed, R, T, n_pos, jump_row=None):
 
 @pytest.mark.parametrize("seed,jump_row", [(0, None), (1, 3), (2, 0)])
 def test_path_counts_plain_matches_pallas(seed, jump_row):
+    """The plain version of the walk's counts epilogue (K3 of the TPU)."""
     R, T, n_lanes = 8, 1024, 512
     path, t_len = _paths(seed, R, T, n_lanes - 2, jump_row)
     live = np.arange(T)[None, :] < t_len[:, None]
     path_safe = np.where(live, path, n_lanes).astype(np.int32)
     want = np.asarray(pallas_rescore.path_counts_pallas(
         jnp.asarray(path_safe), n_lanes, t_len=jnp.asarray(t_len), interpret=True))
-    before = cuda_rescore.path_counts.launches
-    # the port's kernel never reads beyond t_len: hand it the garbage tails
-    got = cuda_rescore.path_counts(_t(path), n_lanes, _t(t_len))
+    before = cuda_dp.path_counts.launches
+    # the counts never read beyond t_len: hand them the garbage tails
+    got = cuda_dp.path_counts_plain(_t(path), n_lanes, _t(t_len))
     assert got.dtype == torch.int32 and got.shape == (R, n_lanes)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        cuda_rescore.path_counts(_t(path_safe), n_lanes, _t(t_len)).numpy(), want)
+        cuda_dp.path_counts_plain(_t(path_safe), n_lanes, _t(t_len)).numpy(), want)
     assert got[1, 1:].max() <= 1 and int(got[2, -1]) == T
-    assert cuda_rescore.path_counts.launches == before, "no kernel on the CPU"
+    assert cuda_dp.path_counts.launches == before, "no kernel on the CPU"
 
 
 # ----------------------------------------------------------- K4 shear gather
@@ -300,6 +301,18 @@ def test_local_cuda_with_tables_matches_pallas(world):
         assert (got[r, :first + k - 1] == 0).all()       # the clipped edge
         assert (got[r, int(batch.window_len[r]):] == 0).all()
     assert (np.abs(got).sum(axis=(1, 2))[:batch.n_reads] > 0).all()
+
+    # the walk's counts handed in give the same result, to the bit
+    a = world["arrs"]
+    cnt = cuda_dp.path_counts_plain(_t(a["path"]), cuda_rescore.count_lanes(
+        a["ids"].shape[1]), _t(a["t_len"]))
+    with_cnt = cuda_rescore.base_loglik_local_cuda(
+        *_common(world["arrs"], _t), k, TCFG, t_w=96, tables=world["tt"],
+        window_off=_t(world["woff"]), cnt=cnt).numpy()
+    np.testing.assert_array_equal(with_cnt, got)
+    with pytest.raises(ValueError):         # counts over the wrong lanes
+        cuda_rescore.base_loglik_local_cuda(
+            *_common(world["arrs"], _t), k, TCFG, t_w=96, cnt=cnt[:, :-128])
 
     # and the table path agrees with the per-batch constants on the interior
     no_tab = cuda_rescore.base_loglik_local_cuda(

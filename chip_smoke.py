@@ -86,9 +86,9 @@ KERNEL_INFO = {
 # the __global__ function behind each wrapper, as the profiler names it (the
 # counts run inside the walk's launch)
 DEVICE_FUNCTION = {
-    "band_gather": "band_gather_kernel", "viterbi_fill": "viterbi_fill_kernel",
+    "band_gather": "band_gather_kernel", "viterbi_fill": "viterbi_fill_kernel<",
     "backtrack": "backtrack_kernel<", "path_counts": None,
-    "viterbi_fill_skip": "viterbi_fill_skip_kernel",
+    "viterbi_fill_skip": "viterbi_fill_skip_kernel<",
     "viterbi_fill_pair": "viterbi_fill_pair_kernel",
     "backtrack_skip": "backtrack_skip_kernel<",
     "shear_gather": "shear_gather_kernel", "rescore_fill_tab": "rescore_tab_kernel",
@@ -204,15 +204,19 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
     mu_pad = torch.nn.functional.pad(a["mu"], (0, pad), value=0.0)
     sg_pad = torch.nn.functional.pad(a["sigma"], (0, pad), value=1.0)
     nbytes = 2 * R * N * 4 + R * n_chunks * 4 + 2 * n_chunks * R * B * 4
+    # kernel and yardstick in turns (kernel, library, library, kernel): both
+    # are a few microseconds, near the launch overhead. The yardstick is two
+    # torch.gather calls on pre-padded rows with a prebuilt index (no
+    # transpose to chunk-major, index build not timed)
+    kern = lambda: cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
+    lib_call = lambda: (torch.gather(mu_pad, 1, idx), torch.gather(sg_pad, 1, idx))
+    turns = [event_ms(f, reps) for f in (kern, lib_call, lib_call, kern)]
     out["band_gather"] = dict(
-        max_abs_err=err,
-        ms=event_ms(lambda: cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B), reps),
+        max_abs_err=err, ms=(turns[0] + turns[3]) / 2,
         plain_ms=event_ms(lambda: cuda_dp.band_gather_plain(
             a["mu"], a["sigma"], a["lo"], B), 3, 1),
-        # yardstick: two torch.gather calls on pre-padded rows with a prebuilt
-        # index (no transpose to chunk-major, index build not timed)
-        library_ms=event_ms(lambda: (torch.gather(mu_pad, 1, idx),
-                                     torch.gather(sg_pad, 1, idx)), reps),
+        library_ms=(turns[1] + turns[2]) / 2,
+        ms_in_turns=[turns[0], turns[3]], library_ms_in_turns=[turns[1], turns[2]],
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         bytes=nbytes, operations=0)
     del idx, mu_pad, sg_pad
@@ -256,12 +260,17 @@ def check_fill(tag, name, wrapper, plain, fill_args, batch, ops_per_cell, reps):
     live_steps = int(batch.t_len.astype(np.int64).sum())
     nbytes = (R * T * 4 + 2 * n_chunks * R * B * 4 + 2 * R * n_chunks * 4
               + 2 * R * 4 + len(decs) * (T // 32) * R * B * 4 + R * B * 4 + R * 4)
+    serial_steps = int(batch.t_len.max())
     nums = dict(
         max_abs_err=max(err_v, err_acc),
         ms=event_ms(lambda: wrapper(*fill_args), reps),
         plain_ms=plain_ms, library_ms=None,
         **bound(nbytes, ops_per_cell * live_steps * B),
-        serial_steps=int(batch.t_len.max()), planes=len(decs))
+        serial_steps=serial_steps, planes=len(decs))
+    nums["ns_per_step"] = nums["ms"] / serial_steps * 1e6
+    if not cfg.dp_pair_step:
+        # the single-step kernel's (slots per lane, chain warps per read)
+        nums["layout_S_W"] = list(cuda_dp.fill_layout(B, cfg.use_skip))
     return nums, decs, v_fin, acc
 
 
@@ -964,7 +973,12 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    kernel_build.load_library()
+    lib = kernel_build.load_library()
+    # the fill's (S, W) table in the kernels and its copy in the wrapper agree
+    for B in range(128, 1025, 128):
+        for skip in (False, True):
+            assert lib.nadavca_fill_slots_per_lane(B, skip) == \
+                cuda_dp.fill_layout(B, skip)[0], (B, skip)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "compiled_now": kernel_build.last_build_seconds is not None,
           "sources": [s.split("nadavca_tpu_torch/")[-1] for s in kernel_build.sources()]})

@@ -16,20 +16,6 @@
 // start (V'[j] = V[j + delta], NEG_INF shifted in); at a chunk end the row
 // maximum moves into acc (only if the row has a live cell).
 //
-// Layout: one block per read, one thread per band slot. The TPU's sequential
-// chunk axis of the grid is the outer loop of the block, its in-chunk loop the
-// inner one. Slot j needs slot j-1 of the previous step, so the row goes
-// through shared memory, double-buffered so that one __syncthreads() per step
-// is enough. Each thread packs its own 32 decision bits and stores one word,
-// which gives the (T/32, R, B) layout with coalesced stores.
-//
-// Bound: operations, or rather their latency. The recurrence is a serial chain
-// of T steps for each read; a step is a shared-memory round trip, a barrier
-// and six dependent float operations, and only R blocks of B threads exist to
-// hide it. The bytes (x once, the band levels once, R*T*B/8 bytes of decision
-// words) are far below what the memory system moves in that time. Chunks that
-// lie wholly beyond a read's end skip the step loop and store zero words.
-//
 // The skip variant (viterbi_fill_skip_kernel) replaces the use_skip branch of
 // the same TPU kernel (pallas_dp.py:293-305, 313, 323-337): a third candidate
 // V[t-1, j-2] + log_p_skip and a second plane of decision words,
@@ -40,18 +26,528 @@
 // The strict compares make stay beat move beat skip on ties. NEG_INF and the
 // default log_p_skip are both the finite -1e30; their sums stay finite in
 // float32 because nothing clamps them, so the operation order is the TPU's.
-// Slot j takes slots j-1 and j-2 of the previous step out of the same
-// shared-memory row after the one barrier of the step. Both variants are one
-// body, specialised at compile time: the step loop without skip holds no
-// branch on the variant and is the program it was before the skip existed.
+//
+// Bound on this card. The bytes (x once, the band levels once, R*T*B/8 bytes
+// of decision words per plane) and the operations (8 per cell, 15 with skip)
+// are far below what the card does in the time of one read's chain: the
+// recurrence is a serial chain of t_len.max() samples per read, and one
+// read's band is all the parallel work a sample has. At the main shape
+// (R = 256, B = 128) the batch fills 1 in 8 of the card's warp slots, and the
+// time per sample does not change from R = 16 to R = 256. So the time is
+// (samples of the longest read) x (cycles per sample of a read), and the
+// design is about the cycles of one sample.
+//
+// The port's first fill gave each read a block of B threads, one slot each,
+// and sent the row through shared memory with a block barrier on every
+// sample: ~140 cycles per sample (70 ns at 1.98 GHz), the store, the barrier
+// and the load of the neighbour on the chain.
+//
+// Layout. A read's band is W chain warps; lane l of chain warp w holds the S
+// contiguous slots j0 = 32*S*w + S*l .. j0 + S - 1 in registers (v and one
+// 32-bit word of decision bits per plane). Per sample:
+//   - slot j0 - 1 (and j0 - 2 under skip) comes from lane l - 1 by
+//     __shfl_up_sync; lane 0 takes NEG_INF, or the left warp's edge;
+//   - the other slots take their neighbours from the lane's own registers,
+//     updated from slot S-1 down so that every read sees the old row;
+//   - the S emissions come from shared memory in one 16-byte load, issued a
+//     sample ahead;
+//   - the bit goes into the word at a position known at compile time: the
+//     sample loop is unrolled by 32 (one word), and each lane stores its S
+//     words once per 32 samples, as 16-byte stores, coalesced over the warp.
+// A dependency path moves one slot per sample at most, so it crosses a lane
+// boundary (a shuffle) at most once every S samples; inside a lane a sample's
+// chain is three dependent float operations (add, max, add).
+//
+// The emissions depend on nothing of the recurrence, and computed in the
+// chain warp they took a third of its instructions. So each chain warp has a
+// producer warp beside it that computes the emissions of the same slots
+// (the chunk's constants, logf included, and 4 operations per slot and
+// sample) into a table in shared memory, HALF samples at a time into two
+// buffers. They hand over through two counters in shared memory (halves
+// made, halves used; st.release / ld.acquire), never a block barrier: the
+// producer runs up to two half-groups ahead.
+//
+// Bands wider than one warp (W > 1). Slot j needs j-1 and j-2 only, never
+// j+1, so a chain warp depends on the warp to its left and on no other. The
+// warps of a read run as a wavefront: at each sample, lane 31 of warp w
+// stores its last slot(s) (the values that sample reads) into a ring in
+// shared memory, and after each half-group publishes how many it has done;
+// warp w+1 waits for that count before the same half-group, loads its 16
+// edge values into one register per lane and hands them to lane 0 sample by
+// sample by __shfl_sync, off its chain. The ring holds RING_HALVES
+// half-groups; a warp waits for its right neighbour only when it would
+// overwrite one not yet read. No barrier and no shared-memory load stands on
+// a sample's chain; a warp runs one half-group behind its left neighbour,
+// which costs W - 1 half-groups per chunk, because the chunk's realign and
+// renormalisation join the chain warps (named barrier 1 over them; the
+// producers never join it). A named barrier per sample would put a store, a
+// barrier and a load on every sample's chain, as the first fill did; a halo
+// would recompute slots and shrink what each warp owns. With W = 1
+// (MULTI = false) the program holds no ring, no wait for a neighbour and no
+// block barrier after its start.
+//
+// Once per chunk: the realign by delta is a round trip through a shared row
+// (a __syncwarp, or the named barrier when W > 1), and the row maximum is a
+// warp reduction by shuffles (then across the W warps through shared memory).
+// Chunks that lie wholly beyond a read's end run no sample and store zero
+// words.
+//
+// What the compiler made of it (cuobjdump -sass; scripts/torch_fill_turns.py
+// counts it): without skip at S = 4, a chain warp issues 23 instructions per
+// sample (8 FADD, 4 FMNMX, 4 FSETP, 4 IADD3 for the bits, SHFL.UP, the lane-0
+// select, the emission load) with 30 stall cycles per sample in the
+// compiler's own schedule, its producer 17 instructions; with skip at S = 2
+// and W > 1, 30 and 10. On an H100 (1.98 GHz) a sample takes ~63 cycles
+// without skip and ~117 with skip (PERF.md): twice the compiler's schedule,
+// whatever the shuffle, the bit packing or the emission loads add (each left
+// out in turn costs under 10 %), and whatever the number of warps per SM.
+//
+// (S, W) by band width and variant, a fixed table (slots_per_lane): without
+// skip S = 4 with W = B / 128, chosen by timing S = 4, W = 1 against S = 2,
+// W = 2 at B = 128 and S = 8, W = 1 against S = 4, W = 2 at B = 256; with
+// skip, whose sample is twice the instructions, S = 2 (W = B / 64) up to
+// B = 256, which beat S = 4 at both widths; above 256 S = 4 (PERF.md).
+//
+// Both variants are one body, specialised at compile time: the program
+// without skip holds no skip code and no second plane.
 //
 // Built with -fmad=false: see common.cuh.
 
 #include "common.cuh"
 
-// p1, p2: without skip (log_p_move - log_p_stay, unused); with skip
-// (log_p_move, log_p_skip). dec2 is the second plane, with skip only.
-template <bool SKIP>
+#include <stddef.h>
+
+namespace {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// half-groups of edge values a chain warp may run ahead of its right neighbour
+constexpr int RING_HALVES = 8;
+// most chain warps a read's band may take (each has a producer warp beside
+// it: the kernels' launch bound is twice this)
+constexpr int MAX_WARPS = 8;
+// samples a producer hands over to its chain warp, and a chain warp to its
+// right neighbour, at a time: a half-group (two buffers of emissions)
+constexpr int HALF = 16;
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+                 : "=r"(v) : "r"(shared_addr(p)) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+    asm volatile("st.release.cta.shared.b32 [%0], %1;"
+                 :: "r"(shared_addr(p)), "r"(v) : "memory");
+}
+
+// A barrier over the W chain warps of a read (named barrier 1; the
+// producer warps never join it), or over the one warp.
+template <bool MULTI>
+__device__ __forceinline__ void chain_sync(int W) {
+    if (MULTI) asm volatile("bar.sync 1, %0;" :: "r"(32 * W) : "memory");
+    else __syncwarp();
+}
+
+template <int S>
+__device__ __forceinline__ void load_slots(const float* __restrict__ p, float (&out)[S]) {
+    static_assert(S == 2 || S % 4 == 0, "S is 2 or a multiple of 4");
+    if constexpr (S == 2) {
+        const float2 q = *reinterpret_cast<const float2*>(p);
+        out[0] = q.x;
+        out[1] = q.y;
+    } else {
+#pragma unroll
+        for (int i = 0; i < S / 4; ++i) {
+            const float4 q = reinterpret_cast<const float4*>(p)[i];
+            out[4 * i] = q.x;
+            out[4 * i + 1] = q.y;
+            out[4 * i + 2] = q.z;
+            out[4 * i + 3] = q.w;
+        }
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void store_slots(float* p, const float (&in)[S]) {
+    if constexpr (S == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+    } else {
+#pragma unroll
+        for (int i = 0; i < S / 4; ++i)
+            reinterpret_cast<float4*>(p)[i] =
+                make_float4(in[4 * i], in[4 * i + 1], in[4 * i + 2], in[4 * i + 3]);
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void store_slots(int* p, const unsigned (&in)[S]) {
+    if constexpr (S == 2) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(in[0], in[1]);
+    } else {
+#pragma unroll
+        for (int i = 0; i < S / 4; ++i)
+            reinterpret_cast<uint4*>(p)[i] =
+                make_uint4(in[4 * i], in[4 * i + 1], in[4 * i + 2], in[4 * i + 3]);
+    }
+}
+
+// A chain warp's slots: the carried row and the words of decision bits of the
+// current group.
+template <bool SKIP, int S>
+struct Chain {
+    float v[S];
+    unsigned pk[S];
+    unsigned pk2[SKIP ? S : 1];
+};
+
+// A producer's emission constants of one chunk: without skip c2p, c1p, c0p;
+// with skip mu, em_const, inv2v.
+template <int S>
+struct EmitConst {
+    float a[S], b[S], c[S];
+};
+
+// The emissions of one sample for the lane's slots, into its row of the
+// table: without skip (c2p * x + c1p) * x + c0p, with skip
+// em_const - (x - mu)^2 * inv2v.
+template <bool SKIP, int S>
+__device__ __forceinline__ void emissions(const EmitConst<S>& q, float xv, float* row) {
+    float e[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        if constexpr (SKIP) {
+            const float diff = xv - q.a[k];
+            e[k] = q.b[k] - (diff * diff) * q.c[k];
+        } else {
+            e[k] = (q.a[k] * xv + q.b[k]) * xv + q.c[k];
+        }
+    }
+    store_slots<S>(row, e);
+}
+
+// One sample for the lane's slots, given their emissions. left1, left2:
+// slots j0 - 1 and j0 - 2 of the previous sample. p1, p2: without skip
+// (log_p_move - log_p_stay, unused); with skip (log_p_move, log_p_skip).
+template <bool SKIP, int S>
+__device__ __forceinline__ void sample(Chain<SKIP, S>& q, const float (&emit)[S],
+                                       float left1, float left2, unsigned bit,
+                                       float log_p_stay, float p1, float p2) {
+#pragma unroll
+    for (int k = S - 1; k >= 0; --k) {
+        const int k1 = k >= 1 ? k - 1 : 0;
+        const int k2 = k >= 2 ? k - 2 : 0;
+        const float vm1 = k >= 1 ? q.v[k1] : left1;
+        if constexpr (SKIP) {
+            const float vm2 = k >= 2 ? q.v[k2] : (k == 1 ? left1 : left2);
+            const float stay = q.v[k] + log_p_stay;
+            const float move = vm1 + p1;
+            const float best = fmaxf(stay, move);
+            const float skip = vm2 + p2;
+            const bool bit2 = skip > best;
+            if (move > stay && !bit2) q.pk[k] |= bit;
+            if (bit2) q.pk2[k] |= bit;
+            q.v[k] = emit[k] + fmaxf(best, skip);
+        } else {
+            const float mv = vm1 + p1;
+            if (mv > q.v[k]) q.pk[k] |= bit;
+            q.v[k] = emit[k] + fmaxf(q.v[k], mv);
+        }
+    }
+}
+
+// Sample s of a group (u of its half-group), its emissions given: the edge
+// handed to the right warp, the neighbours, the update. At the free start
+// (t = 0) the emission alone (with the folded stay taken out again without
+// skip), no bit. e1g / e2g hold the half's left edges, sample u in lane u;
+// ring1 / ring2 this warp's ring row of the half (MULTI, with a right
+// neighbour, written by lane 31 only).
+template <bool SKIP, int S, bool MULTI>
+__device__ __forceinline__ void group_sample(Chain<SKIP, S>& q, const float (&emit)[S],
+                                             int s, int u, bool first, int lane, float e1g,
+                                             float e2g, bool feed, float* ring1,
+                                             float* ring2, float log_p_stay, float p1,
+                                             float p2) {
+    if (MULTI && feed) {
+        ring1[u] = q.v[S - 1];
+        if constexpr (SKIP) ring2[u] = q.v[S - 2];
+    }
+    if (first) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) q.v[k] = SKIP ? emit[k] : emit[k] - log_p_stay;
+        return;
+    }
+    float e1 = NADAVCA_NEG_INF, e2 = NADAVCA_NEG_INF;
+    if (MULTI) {
+        e1 = __shfl_sync(FULL_MASK, e1g, u);
+        if constexpr (SKIP) e2 = __shfl_sync(FULL_MASK, e2g, u);
+    }
+    const float u1 = __shfl_up_sync(FULL_MASK, q.v[S - 1], 1);
+    const float left1 = lane == 0 ? e1 : u1;
+    float left2 = NADAVCA_NEG_INF;
+    if constexpr (SKIP) {
+        const float u2 = __shfl_up_sync(FULL_MASK, q.v[S - 2], 1);
+        left2 = lane == 0 ? e2 : u2;
+    }
+    sample<SKIP, S>(q, emit, left1, left2, 1u << s, log_p_stay, p1, p2);
+}
+
+// The producer warp of one chain warp: the emissions of the same slots for
+// every live sample, HALF samples at a time into the buffer (h & 1) of the
+// table, h the read's half-group counter. made / used count the halves
+// written and read.
+template <bool SKIP, int S>
+__device__ __forceinline__ void produce(const float* __restrict__ xr,
+                                        const float* __restrict__ mu_b,
+                                        const float* __restrict__ sg_b,
+                                        const int* __restrict__ lo_r, int R, int T, int C,
+                                        int B, int r, int j0, int lane, int tl, int nr,
+                                        float log_p_stay, float* tab, int* made,
+                                        const int* used) {
+    constexpr int ROW = 32 * S;
+    const int n_chunks = T / C;
+    const size_t band0 = (size_t)r * B + j0;
+    float mu_n[S], sg_n[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        mu_n[k] = 0.0f;
+        sg_n[k] = 1.0f;
+    }
+    if (tl > 0) {
+        load_slots<S>(mu_b + band0, mu_n);
+        load_slots<S>(sg_b + band0, sg_n);
+    }
+    float xg_n = tl > 0 ? xr[lane] : 0.0f;
+    for (int c = 0; c < n_chunks; ++c) {
+        const int t0 = c * C;
+        const int n_act = min(tl - t0, C);
+        if (n_act <= 0) break;              // and so are the chunks after it
+        EmitConst<S> q;
+        const int lo_c = lo_r[c];
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+            const float mu = mu_n[k], sg = sg_n[k];
+            const float em_const = (lo_c + j0 + k < nr)
+                ? (-logf(sg) - NADAVCA_HALF_LOG_2PI) : NADAVCA_NEG_INF;
+            const float inv2v = 0.5f / (sg * sg);
+            if constexpr (SKIP) {
+                q.a[k] = mu;
+                q.b[k] = em_const;
+                q.c[k] = inv2v;
+            } else {
+                q.a[k] = -inv2v;
+                q.b[k] = (mu + mu) * inv2v;
+                q.c[k] = (em_const - (mu * mu) * inv2v) + log_p_stay;
+            }
+        }
+        if (t0 + C < tl) {
+            const size_t bn = (size_t)(c + 1) * R * B + band0;
+            load_slots<S>(mu_b + bn, mu_n);
+            load_slots<S>(sg_b + bn, sg_n);
+        }
+        const int n_groups = (n_act + 31) >> 5;
+        for (int g = 0; g < n_groups; ++g) {
+            const int G = c * (C >> 5) + g;
+            const float xg = xg_n;
+            if ((G + 1) * 32 < tl) xg_n = xr[(G + 1) * 32 + lane];
+            const int n = min(32, n_act - 32 * g);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int nh = min(HALF, n - HALF * half);
+                if (nh <= 0) break;
+                const int h = 2 * G + half;
+                // the chain warp is done with the half that last used this buffer
+                while (load_acquire(used) < h - 1) {
+                }
+                float* dst = tab + (h & 1) * HALF * ROW;
+                if (nh == HALF) {
+#pragma unroll
+                    for (int u = 0; u < HALF; ++u)
+                        emissions<SKIP, S>(q, __shfl_sync(FULL_MASK, xg, HALF * half + u),
+                                           dst + u * ROW);
+                } else {
+#pragma unroll 1
+                    for (int u = 0; u < nh; ++u)
+                        emissions<SKIP, S>(q, __shfl_sync(FULL_MASK, xg, HALF * half + u),
+                                           dst + u * ROW);
+                }
+                __threadfence_block();
+                __syncwarp();
+                if (lane == 0) store_release(made, h + 1);
+            }
+        }
+    }
+}
+
+// One half-group h = 2G + half of a chain warp: n samples (HALF when FULL)
+// from bit s0 of word row G. Waits for the left warp's edges of the half
+// (MULTI), for room in its own ring, and for the producer's emissions; then
+// hands the buffer back and, with W > 1, publishes its own edges.
+template <bool SKIP, int S, bool MULTI, bool FULL>
+__device__ __forceinline__ void chain_half(Chain<SKIP, S>& q, int h, int s0, int n,
+                                           bool first_group, int w, int W, int lane,
+                                           const float* tab, const int* made, int* used,
+                                           int* done, float* ring, float log_p_stay,
+                                           float p1, float p2) {
+    constexpr int PLANES = SKIP ? 2 : 1;
+    constexpr int ROW = 32 * S;
+    const bool feed = MULTI && w + 1 < W && lane == 31;
+    float e1g = NADAVCA_NEG_INF, e2g = NADAVCA_NEG_INF;
+    float* ring1 = nullptr;
+    float* ring2 = nullptr;
+    if (MULTI) {
+        const int slot = h % RING_HALVES;
+        if (w > 0) {
+            while (load_acquire(done + w - 1) <= h) {
+            }
+            const float* in = ring + ((size_t)((w - 1) * RING_HALVES + slot) * PLANES) * HALF;
+            e1g = in[lane & (HALF - 1)];
+            if constexpr (SKIP) e2g = in[HALF + (lane & (HALF - 1))];
+        }
+        if (w + 1 < W) {
+            // the right neighbour must have read this ring slot
+            while (h >= RING_HALVES && load_acquire(done + w + 1) <= h - RING_HALVES) {
+            }
+            ring1 = ring + ((size_t)(w * RING_HALVES + slot) * PLANES) * HALF;
+            ring2 = ring1 + HALF;
+        }
+    }
+    while (load_acquire(made) <= h) {
+    }
+    const float* src = tab + (h & 1) * HALF * ROW;
+    if constexpr (FULL) {
+        float e_next[S];
+        load_slots<S>(src, e_next);
+#pragma unroll
+        for (int u = 0; u < HALF; ++u) {
+            float e[S];
+#pragma unroll
+            for (int k = 0; k < S; ++k) e[k] = e_next[k];
+            if (u + 1 < HALF) load_slots<S>(src + (u + 1) * ROW, e_next);
+            group_sample<SKIP, S, MULTI>(q, e, s0 + u, u, false, lane, e1g, e2g, feed,
+                                         ring1, ring2, log_p_stay, p1, p2);
+        }
+    } else {
+#pragma unroll 1
+        for (int u = 0; u < n; ++u) {
+            float e[S];
+            load_slots<S>(src + u * ROW, e);
+            group_sample<SKIP, S, MULTI>(q, e, s0 + u, u, first_group && s0 + u == 0, lane,
+                                         e1g, e2g, feed, ring1, ring2, log_p_stay, p1, p2);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) store_release(used, h + 1);
+    if (MULTI && lane == 31) store_release(done + w, h + 1);
+}
+
+// A chain warp: the recurrence over its slots, the realign and the
+// renormalisation, the decision words.
+template <bool SKIP, int S, bool MULTI>
+__device__ __forceinline__ void chain(const int* __restrict__ delta_r,
+                                      int* __restrict__ dec, int* __restrict__ dec2,
+                                      float* __restrict__ v_out,
+                                      float* __restrict__ acc_out, int R, int T, int C,
+                                      int B, int r, int w, int W, int lane, int j0, int tl,
+                                      float log_p_stay, float p1, float p2,
+                                      const float* tab, const int* made, int* used,
+                                      float* row, float* red, int* done, float* ring) {
+    const int n_chunks = T / C;
+    const int gpc = C >> 5;                 // groups (decision words) per chunk
+
+    Chain<SKIP, S> q;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        q.v[k] = NADAVCA_NEG_INF;
+        q.pk[k] = 0u;
+        if constexpr (SKIP) q.pk2[k] = 0u;
+    }
+    float acc = 0.0f;
+    int d_n = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+        const int t0 = c * C;
+        const int d = d_n;
+        if (c + 1 < n_chunks) d_n = delta_r[c + 1];
+        if (c > 0) {
+            // realign the carried row to the new band start: V'[j] = V[j + d]
+            // (W > 1: the chunk-end barrier already ordered the last reads)
+            if (!MULTI) __syncwarp();
+            store_slots<S>(row + j0, q.v);
+            chain_sync<MULTI>(W);
+#pragma unroll
+            for (int k = 0; k < S; ++k) {
+                const long long src = (long long)(j0 + k) + d;
+                q.v[k] = (src >= 0 && src < B) ? row[src] : NADAVCA_NEG_INF;
+            }
+        }
+
+        int n_act = tl - t0;
+        if (n_act > C) n_act = C;
+        const int n_groups = n_act > 0 ? (n_act + 31) >> 5 : 0;
+        for (int g = 0; g < n_groups; ++g) {
+            const int G = c * gpc + g;              // absolute group = word row
+            const int n = min(32, n_act - 32 * g);
+            if (n == 32 && G > 0) {
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    chain_half<SKIP, S, MULTI, true>(q, 2 * G + half, HALF * half, HALF,
+                                                     false, w, W, lane, tab, made, used,
+                                                     done, ring, log_p_stay, p1, p2);
+            } else {
+                // the read's first group (free start) and its last, partial one
+                for (int half = 0; half < 2; ++half) {
+                    const int nh = min(HALF, n - HALF * half);
+                    if (nh <= 0) break;
+                    chain_half<SKIP, S, MULTI, false>(q, 2 * G + half, HALF * half, nh,
+                                                      G == 0, w, W, lane, tab, made, used,
+                                                      done, ring, log_p_stay, p1, p2);
+                }
+            }
+            const size_t off = ((size_t)G * R + r) * B + j0;
+            store_slots<S>(dec + off, q.pk);
+            if constexpr (SKIP) store_slots<S>(dec2 + off, q.pk2);
+#pragma unroll
+            for (int k = 0; k < S; ++k) {
+                q.pk[k] = 0u;
+                if constexpr (SKIP) q.pk2[k] = 0u;
+            }
+        }
+        for (int g = n_groups; g < gpc; ++g) {
+            const size_t off = ((size_t)(c * gpc + g) * R + r) * B + j0;
+            const unsigned zero[S] = {};
+            store_slots<S>(dec + off, zero);
+            if constexpr (SKIP) store_slots<S>(dec2 + off, zero);
+        }
+
+        // chunk-end renormalisation into the accumulator
+        float m = q.v[0];
+#pragma unroll
+        for (int k = 1; k < S; ++k) m = fmaxf(m, q.v[k]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+        if (MULTI) {
+            if (lane == 0) red[w] = m;
+            chain_sync<MULTI>(W);
+            m = red[0];
+            for (int i = 1; i < W; ++i) m = fmaxf(m, red[i]);
+        }
+        m = (m > NADAVCA_NEG_INF_HALF) ? m : 0.0f;
+#pragma unroll
+        for (int k = 0; k < S; ++k) q.v[k] = q.v[k] - m;
+        acc = acc + m;
+    }
+    store_slots<S>(v_out + (size_t)r * B + j0, q.v);
+    if (j0 == 0) acc_out[r] = acc;
+}
+
+// A read's block: W = B / (32 * S) chain warps (warps 0 .. W-1), then one
+// producer warp for each (warps W .. 2W-1).
+template <bool SKIP, int S, bool MULTI>
 __device__ __forceinline__ void fill_body(const float* __restrict__ x,
                                           const int* __restrict__ t_len,
                                           const float* __restrict__ mu_b,
@@ -65,155 +561,192 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
                                           float* __restrict__ acc_out,
                                           int R, int T, int C, int B,
                                           float log_p_stay, float p1, float p2) {
-    extern __shared__ float smem[];
-    float* vbuf0 = smem;            // B
-    float* vbuf1 = smem + B;        // B
-    float* xs = smem + 2 * B;       // C
-    float* red = xs + C;            // 32
+    constexpr int PLANES = SKIP ? 2 : 1;
+    constexpr int ROW = 32 * S;
+    extern __shared__ __align__(16) float smem[];
+    const int W = B / (32 * S);
+    float* row = smem;                                      // B: the realign
+    float* red = row + B;                                   // row maxima of the warps
+    int* done = reinterpret_cast<int*>(red + MAX_WARPS);    // groups done, per warp
+    int* made = done + MAX_WARPS;                           // halves produced
+    int* used = made + MAX_WARPS;                           // halves consumed
+    float* ring = reinterpret_cast<float*>(used + MAX_WARPS);
+    // ring: [warp][RING_HALVES][PLANES][HALF] edge values (MULTI only); then
+    // the tables, [warp][2 buffers][HALF samples][32 lanes * S], 16-byte aligned
+    float* table = ring + (MULTI ? (size_t)W * RING_HALVES * PLANES * HALF : 0);
 
     const int r = blockIdx.x;
-    const int j = threadIdx.x;
-    const int n_warps = B >> 5;
-    const int n_chunks = T / C;
-    const int wpc = C >> 5;         // decision words per chunk
+    const int lane = threadIdx.x & 31;
+    const int wid = threadIdx.x >> 5;
+    const int w = wid < W ? wid : wid - W;  // the chain warp served
+    const int j0 = (w * 32 + lane) * S;
     const int tl = t_len[r];
-    const int nr = n_ref[r];
-
-    float v = NADAVCA_NEG_INF;
-    float acc = 0.0f;
-
-    for (int c = 0; c < n_chunks; ++c) {
-        const int t0 = c * C;
-        if (c > 0) {
-            // realign the carried row to the new band start
-            const int d = delta[(size_t)r * n_chunks + c];
-            vbuf0[j] = v;
-            __syncthreads();
-            const int src = j + d;
-            v = (src >= 0 && src < B) ? vbuf0[src] : NADAVCA_NEG_INF;
-            __syncthreads();
-        }
-        int n_act = tl - t0;
-        if (n_act > C) n_act = C;
-        const size_t dec_off = ((size_t)(t0 >> 5) * R + r) * B + j;
-        int* dec_c = dec + dec_off;
-        int* dec2_c = SKIP ? dec2 + dec_off : nullptr;
-        const size_t word_stride = (size_t)R * B;
-        int words_done = 0;
-
-        if (n_act > 0) {
-            for (int i = j; i < C; i += B) xs[i] = x[(size_t)r * T + t0 + i];
-            const size_t bi = ((size_t)c * R + r) * B + j;
-            const float mu = mu_b[bi];
-            const float sg = sg_b[bi];
-            const int lo_c = lo[(size_t)r * n_chunks + c];
-            const float em_const = (lo_c + j < nr)
-                ? (-logf(sg) - NADAVCA_HALF_LOG_2PI) : NADAVCA_NEG_INF;
-            const float inv2v = 0.5f / (sg * sg);
-            const float c2p = -inv2v;
-            const float c1p = (mu + mu) * inv2v;
-            const float c0p = (em_const - (mu * mu) * inv2v) + log_p_stay;
-            __syncthreads();
-
-            unsigned pack = 0u, pack2 = 0u;
-            for (int s = 0; s < n_act; ++s) {
-                float* buf = (s & 1) ? vbuf1 : vbuf0;
-                buf[j] = v;
-                __syncthreads();
-                const float vm1 = (j > 0) ? buf[j - 1] : NADAVCA_NEG_INF;
-                const float xv = xs[s];
-                if (SKIP) {
-                    const float vm2 = (j > 1) ? buf[j - 2] : NADAVCA_NEG_INF;
-                    const float diff = xv - mu;
-                    const float emit = em_const - (diff * diff) * inv2v;
-                    if (t0 + s == 0) {
-                        v = emit;
-                    } else {
-                        const float stay = v + log_p_stay;
-                        const float move = vm1 + p1;
-                        const float best = fmaxf(stay, move);
-                        const float skip = vm2 + p2;
-                        const bool bit2 = skip > best;
-                        if (move > stay && !bit2) pack |= 1u << (s & 31);
-                        if (bit2) pack2 |= 1u << (s & 31);
-                        v = emit + fmaxf(best, skip);
-                    }
-                } else {
-                    const float emit = (c2p * xv + c1p) * xv + c0p;
-                    const float mv = vm1 + p1;
-                    if (t0 + s == 0) {
-                        v = emit - log_p_stay;
-                    } else {
-                        if (mv > v) pack |= 1u << (s & 31);
-                        v = emit + fmaxf(v, mv);
-                    }
-                }
-                if ((s & 31) == 31) {
-                    dec_c[(size_t)words_done * word_stride] = (int)pack;
-                    if (SKIP) dec2_c[(size_t)words_done * word_stride] = (int)pack2;
-                    ++words_done;
-                    pack = 0u;
-                    pack2 = 0u;
-                }
-            }
-            if (n_act & 31) {
-                dec_c[(size_t)words_done * word_stride] = (int)pack;
-                if (SKIP) dec2_c[(size_t)words_done * word_stride] = (int)pack2;
-                ++words_done;
-            }
-        }
-        for (int w = words_done; w < wpc; ++w) {
-            dec_c[(size_t)w * word_stride] = 0;
-            if (SKIP) dec2_c[(size_t)w * word_stride] = 0;
-        }
-
-        // chunk-end renormalisation into the accumulator
-        float m = block_max(v, red, j, n_warps);
-        m = (m > NADAVCA_NEG_INF_HALF) ? m : 0.0f;
-        v = v - m;
-        acc = acc + m;
-        __syncthreads();   // red[] is free again, xs[] may be overwritten
+    const int n_chunks = T / C;
+    float* tab = table + (size_t)w * 2 * HALF * ROW + lane * S;
+    if (threadIdx.x < MAX_WARPS) {
+        done[threadIdx.x] = 0;
+        made[threadIdx.x] = 0;
+        used[threadIdx.x] = 0;
     }
-    v_out[(size_t)r * B + j] = v;
-    if (j == 0) acc_out[r] = acc;
+    __syncthreads();
+    if (wid >= W) {
+        produce<SKIP, S>(x + (size_t)r * T, mu_b, sg_b, lo + (size_t)r * n_chunks, R, T, C,
+                         B, r, j0, lane, tl, n_ref[r], log_p_stay, tab, made + w, used + w);
+        return;
+    }
+    chain<SKIP, S, MULTI>(delta + (size_t)r * n_chunks, dec, dec2, v_out, acc_out, R, T, C,
+                          B, r, w, W, lane, j0, tl, log_p_stay, p1, p2, tab, made + w,
+                          used + w, row, red, done, ring);
 }
 
-__global__ void viterbi_fill_kernel(const float* __restrict__ x,
-                                    const int* __restrict__ t_len,
-                                    const float* __restrict__ mu_b,
-                                    const float* __restrict__ sg_b,
-                                    const int* __restrict__ lo,
-                                    const int* __restrict__ delta,
-                                    const int* __restrict__ n_ref,
-                                    int* __restrict__ dec,
-                                    float* __restrict__ v_out,
-                                    float* __restrict__ acc_out,
-                                    int R, int T, int C, int B,
-                                    float log_p_stay, float dcs) {
-    fill_body<false>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, nullptr, v_out,
-                     acc_out, R, T, C, B, log_p_stay, dcs, 0.0f);
+template <int S, bool MULTI>
+__global__ void __launch_bounds__(64 * MAX_WARPS, 1)
+viterbi_fill_kernel(const float* __restrict__ x, const int* __restrict__ t_len,
+                    const float* __restrict__ mu_b, const float* __restrict__ sg_b,
+                    const int* __restrict__ lo, const int* __restrict__ delta,
+                    const int* __restrict__ n_ref, int* __restrict__ dec,
+                    float* __restrict__ v_out, float* __restrict__ acc_out,
+                    int R, int T, int C, int B, float log_p_stay, float dcs) {
+    fill_body<false, S, MULTI>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, nullptr,
+                               v_out, acc_out, R, T, C, B, log_p_stay, dcs, 0.0f);
 }
 
-__global__ void viterbi_fill_skip_kernel(const float* __restrict__ x,
-                                         const int* __restrict__ t_len,
-                                         const float* __restrict__ mu_b,
-                                         const float* __restrict__ sg_b,
-                                         const int* __restrict__ lo,
-                                         const int* __restrict__ delta,
-                                         const int* __restrict__ n_ref,
-                                         int* __restrict__ dec,
-                                         int* __restrict__ dec2,
-                                         float* __restrict__ v_out,
-                                         float* __restrict__ acc_out,
-                                         int R, int T, int C, int B,
-                                         float log_p_stay, float log_p_move,
-                                         float log_p_skip) {
-    fill_body<true>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, dec2, v_out,
-                    acc_out, R, T, C, B, log_p_stay, log_p_move, log_p_skip);
+template <int S, bool MULTI>
+__global__ void __launch_bounds__(64 * MAX_WARPS, 1)
+viterbi_fill_skip_kernel(const float* __restrict__ x, const int* __restrict__ t_len,
+                         const float* __restrict__ mu_b, const float* __restrict__ sg_b,
+                         const int* __restrict__ lo, const int* __restrict__ delta,
+                         const int* __restrict__ n_ref, int* __restrict__ dec,
+                         int* __restrict__ dec2, float* __restrict__ v_out,
+                         float* __restrict__ acc_out, int R, int T, int C, int B,
+                         float log_p_stay, float log_p_move, float log_p_skip) {
+    fill_body<true, S, MULTI>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, dec2, v_out,
+                              acc_out, R, T, C, B, log_p_stay, log_p_move, log_p_skip);
 }
 
-static bool fill_shape_ok(int C, int B, int T) {
-    return !(B < 32 || B > 1024 || (B & 31) || (C & 31) || C <= 0 || T % C);
+// The fixed (S, W) table: S slots per lane, W = B / (32 * S) chain warps.
+// Without skip S = 4; with skip, whose sample is twice the instructions,
+// S = 2 up to B = 256. Above 256 S = 4 (W = B / 128, at most 8).
+int slots_per_lane(int B, bool skip) {
+    return skip && B <= 256 ? 2 : 4;
+}
+
+bool fill_shape_ok(int C, int B, int T, int S) {
+    if (!(S == 2 || S == 4 || S == 8)) return false;
+    if (B <= 0 || B > 1024 || B % (32 * S) != 0 || B / (32 * S) > MAX_WARPS) return false;
+    return !((C & 31) || C <= 0 || T % C);
+}
+
+size_t fill_shmem(int B, int W, bool skip) {
+    const size_t ring = W > 1 ? (size_t)W * RING_HALVES * (skip ? 2 : 1) * HALF : 0;
+    const size_t tables = (size_t)W * 2 * HALF * (B / W);
+    return (B + 4 * MAX_WARPS + ring + tables) * sizeof(float);
+}
+
+// Dynamic shared memory above 48 KB must be allowed per kernel.
+template <typename K>
+cudaError_t allow_shmem(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+}
+#define NADAVCA_FILL_ARGS x, t_len, mu_b, sg_b, lo, delta, n_ref
+
+template <int S>
+int launch_fill(const float* x, const int* t_len, const float* mu_b, const float* sg_b,
+                const int* lo, const int* delta, const int* n_ref, int* dec,
+                float* v_out, float* acc_out, int R, int T, int C, int B,
+                float log_p_stay, float dcs, cudaStream_t stream) {
+    const int W = B / (32 * S);
+    const size_t shmem = fill_shmem(B, W, false);
+    if (W > 1) {
+        if (cudaError_t e = allow_shmem(viterbi_fill_kernel<S, true>, shmem)) return (int)e;
+        viterbi_fill_kernel<S, true><<<R, 64 * W, shmem, stream>>>(
+            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, log_p_stay, dcs);
+    } else {
+        if (cudaError_t e = allow_shmem(viterbi_fill_kernel<S, false>, shmem)) return (int)e;
+        viterbi_fill_kernel<S, false><<<R, 64, shmem, stream>>>(
+            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, log_p_stay, dcs);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_fill_skip(const float* x, const int* t_len, const float* mu_b,
+                     const float* sg_b, const int* lo, const int* delta,
+                     const int* n_ref, int* dec, int* dec2, float* v_out,
+                     float* acc_out, int R, int T, int C, int B, float log_p_stay,
+                     float log_p_move, float log_p_skip, cudaStream_t stream) {
+    const int W = B / (32 * S);
+    const size_t shmem = fill_shmem(B, W, true);
+    if (W > 1) {
+        if (cudaError_t e = allow_shmem(viterbi_fill_skip_kernel<S, true>, shmem))
+            return (int)e;
+        viterbi_fill_skip_kernel<S, true><<<R, 64 * W, shmem, stream>>>(
+            NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R, T, C, B, log_p_stay,
+            log_p_move, log_p_skip);
+    } else {
+        if (cudaError_t e = allow_shmem(viterbi_fill_skip_kernel<S, false>, shmem))
+            return (int)e;
+        viterbi_fill_skip_kernel<S, false><<<R, 64, shmem, stream>>>(
+            NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R, T, C, B, log_p_stay,
+            log_p_move, log_p_skip);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The table's S for band width B (the wrapper reports it; cuda_dp.fill_layout
+// mirrors it).
+NADAVCA_EXPORT int nadavca_fill_slots_per_lane(int B, int skip) {
+    return slots_per_lane(B, skip != 0);
+}
+
+// The fill at an explicit S (2, 4 or 8 slots per lane, W = B / (32 * S) warps
+// of at most 8): the layouts the table chose between, for timing them.
+NADAVCA_EXPORT int nadavca_viterbi_fill_layout(const float* x, const int* t_len,
+                                               const float* mu_b, const float* sg_b,
+                                               const int* lo, const int* delta,
+                                               const int* n_ref, int* dec,
+                                               float* v_out, float* acc_out,
+                                               int R, int T, int C, int B,
+                                               float log_p_stay, float dcs, int S,
+                                               void* stream) {
+    if (R == 0) return 0;
+    if (!fill_shape_ok(C, B, T, S)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (S) {
+    case 2: return launch_fill<2>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+                                  log_p_stay, dcs, st);
+    case 4: return launch_fill<4>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+                                  log_p_stay, dcs, st);
+    default: return launch_fill<8>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+                                   log_p_stay, dcs, st);
+    }
+}
+
+NADAVCA_EXPORT int nadavca_viterbi_fill_skip_layout(const float* x, const int* t_len,
+                                                    const float* mu_b, const float* sg_b,
+                                                    const int* lo, const int* delta,
+                                                    const int* n_ref, int* dec, int* dec2,
+                                                    float* v_out, float* acc_out,
+                                                    int R, int T, int C, int B,
+                                                    float log_p_stay, float log_p_move,
+                                                    float log_p_skip, int S,
+                                                    void* stream) {
+    if (R == 0) return 0;
+    if (!fill_shape_ok(C, B, T, S)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (S) {
+    case 2: return launch_fill_skip<2>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R,
+                                       T, C, B, log_p_stay, log_p_move, log_p_skip, st);
+    case 4: return launch_fill_skip<4>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R,
+                                       T, C, B, log_p_stay, log_p_move, log_p_skip, st);
+    default: return launch_fill_skip<8>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out,
+                                        R, T, C, B, log_p_stay, log_p_move, log_p_skip,
+                                        st);
+    }
 }
 
 NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
@@ -224,13 +757,9 @@ NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
                                         int R, int T, int C, int B,
                                         float log_p_stay, float dcs,
                                         void* stream) {
-    if (R == 0) return 0;
-    if (!fill_shape_ok(C, B, T)) return (int)cudaErrorInvalidValue;
-    const size_t shmem = (size_t)(2 * B + C + 32) * sizeof(float);
-    viterbi_fill_kernel<<<R, B, shmem, (cudaStream_t)stream>>>(
-        x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, v_out, acc_out,
-        R, T, C, B, log_p_stay, dcs);
-    return (int)cudaGetLastError();
+    return nadavca_viterbi_fill_layout(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C,
+                                       B, log_p_stay, dcs, slots_per_lane(B, false),
+                                       stream);
 }
 
 NADAVCA_EXPORT int nadavca_viterbi_fill_skip(const float* x, const int* t_len,
@@ -241,11 +770,7 @@ NADAVCA_EXPORT int nadavca_viterbi_fill_skip(const float* x, const int* t_len,
                                              int R, int T, int C, int B,
                                              float log_p_stay, float log_p_move,
                                              float log_p_skip, void* stream) {
-    if (R == 0) return 0;
-    if (!fill_shape_ok(C, B, T)) return (int)cudaErrorInvalidValue;
-    const size_t shmem = (size_t)(2 * B + C + 32) * sizeof(float);
-    viterbi_fill_skip_kernel<<<R, B, shmem, (cudaStream_t)stream>>>(
-        x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, dec2, v_out, acc_out,
-        R, T, C, B, log_p_stay, log_p_move, log_p_skip);
-    return (int)cudaGetLastError();
+    return nadavca_viterbi_fill_skip_layout(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out,
+                                            R, T, C, B, log_p_stay, log_p_move,
+                                            log_p_skip, slots_per_lane(B, true), stream);
 }

@@ -310,6 +310,15 @@ def viterbi_fill_pair_plain(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
     return st.decs, st.v, st.acc
 
 
+def fill_layout(band_width: int, use_skip: bool = False) -> Tuple[int, int]:
+    """(S, W) of the single-step fill kernel for a band of ``band_width``
+    slots, without or with skip: S slots per lane, W chain warps per read
+    (each with a producer warp beside it). The table is ``slots_per_lane`` in
+    ``csrc/viterbi_fill.cu``, which the kernels use; this is its copy."""
+    S = 2 if use_skip and band_width <= 256 else 4
+    return S, band_width // (32 * S)
+
+
 def _fill_prologue(name, x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg):
     """Argument checks shared by the three fill wrappers. Returns (R, T, C, B)."""
     _check_fill_cfg(cfg)
@@ -331,7 +340,8 @@ def _fill_prologue(name, x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if dev.type == "cuda" and B > 1024:
-        raise ValueError(f"band_width {B} exceeds one thread block (1024 slots)")
+        raise ValueError(f"band_width {B} exceeds 1024 slots, the most the fill "
+                         f"kernels take")
     return R, T, C, B
 
 

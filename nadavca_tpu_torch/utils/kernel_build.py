@@ -130,6 +130,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nadavca_viterbi_fill_skip.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, f, f, f, p]
     lib.nadavca_viterbi_fill_skip.restype = i
+    lib.nadavca_viterbi_fill_layout.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                                i, i, i, i, f, f, i, p]
+    lib.nadavca_viterbi_fill_layout.restype = i
+    lib.nadavca_viterbi_fill_skip_layout.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                                     i, i, i, i, f, f, f, i, p]
+    lib.nadavca_viterbi_fill_skip_layout.restype = i
+    lib.nadavca_fill_slots_per_lane.argtypes = [i, i]
+    lib.nadavca_fill_slots_per_lane.restype = i
     lib.nadavca_viterbi_fill_pair.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, f, f, f, f, f, p]
     lib.nadavca_viterbi_fill_pair.restype = i

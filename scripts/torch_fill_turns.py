@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Time the port's Viterbi fill (``csrc/viterbi_fill.cu``) against an older
+version of it, in turns, on one NVIDIA card, and report what the compiler
+made of it.
+
+    python3 scripts/torch_fill_turns.py --old DIR [--reps 20] [--out DIR]
+
+``DIR`` is the root of another checkout of this repository (for example an
+unpacked ``git archive`` of an earlier commit) whose
+``nadavca_tpu_torch/csrc/viterbi_fill.cu`` and ``viterbi_fill_pair.cu`` have
+the C interfaces ``nadavca_viterbi_fill``, ``nadavca_viterbi_fill_skip`` and
+``nadavca_viterbi_fill_pair`` of this checkout. Those two sources are built
+with ``nvcc`` (one process each, started together) into a library of their
+own under ``DIR/_fill_build`` and bound with ``ctypes``; this checkout's
+kernels are built as the port builds them.
+
+On the batches ``chip_smoke.py`` checks its kernels on (same seeds: the
+default batch R=256, T=11136, B=128, the batch with pore skips, and the wide
+batches R=32, T=22016, B=256 without and with skips), after checking that
+every version gives the plain version's decision words:
+
+- the fill (K1, or K7a on the batches with skips) old, new, new, old;
+- the two-sample fill (K7b, the same source in both checkouts) in the same
+  turns, as the control that must not move;
+- every layout (S slots per lane, W = B / (32 S) warps per read) the kernel
+  can run at that band width, forward then backward, the table's marked;
+- nanoseconds per serial step (ms / t_len.max()) of each.
+
+Then, from this checkout's build: the registers, shared memory and spills of
+each fill kernel (``ptxas -v``), and from its SASS (``cuobjdump -sass``) the
+instructions and the compiler's stall cycles per sample of the unrolled
+sample loops of a chain warp and of a producer warp. The full SASS of the
+fill kernels goes to ``fill_sass.txt`` in ``--out``, by default the build
+directory beside the library and its ``ptxas.log``. Prints one JSON line per measurement; the card's name,
+power limit and SM clock come first. Needs a card; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+
+import chip_smoke as cs                                            # noqa: E402
+import nadavca_tpu_torch as nt                                     # noqa: E402
+from nadavca_tpu_torch.ops import cuda_dp                          # noqa: E402
+from nadavca_tpu_torch.utils import kernel_build                  # noqa: E402
+from torch_walk_turns import batches                               # noqa: E402
+
+FILL_NAMES = ("viterbi_fill_kernel", "viterbi_fill_skip_kernel")
+
+
+def build_old(old_root: str) -> ctypes.CDLL:
+    csrc = os.path.join(old_root, "nadavca_tpu_torch", "csrc")
+    out = os.path.join(old_root, "_fill_build")
+    os.makedirs(out, exist_ok=True)
+    nvcc = kernel_build.find_nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-fmad=false", "-Xcompiler", "-fPIC"]
+    objs, procs = [], []
+    for name in ("viterbi_fill", "viterbi_fill_pair"):
+        obj = os.path.join(out, name + ".o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc] + flags + ["-c", os.path.join(csrc, name + ".cu"), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out_text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed on the older fill:\n" + out_text)
+    so = os.path.join(out, "libold_fill.so")
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                    "-o", so] + objs, check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(so)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nadavca_viterbi_fill.argtypes = [p] * 10 + [i] * 4 + [f, f, p]
+    lib.nadavca_viterbi_fill_skip.argtypes = [p] * 11 + [i] * 4 + [f, f, f, p]
+    lib.nadavca_viterbi_fill_pair.argtypes = [p] * 10 + [i] * 4 + [f] * 5 + [p]
+    for fn in (lib.nadavca_viterbi_fill, lib.nadavca_viterbi_fill_skip,
+               lib.nadavca_viterbi_fill_pair):
+        fn.restype = i
+    return lib
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch(fn, args, cfg, n_planes, extra):
+    """A fill of either library's C interface on the wrapper's outputs;
+    ``extra`` are the float constants, then any further int arguments."""
+    x, t_len, mu_b, sg_b, lo, delta, n_ref = args
+    R, T = x.shape
+    B = cfg.band_width
+    decs, v_out, acc = cuda_dp._fill_outputs(R, T, B, x.device, n_planes)
+    code = fn(x.data_ptr(), t_len.data_ptr(), mu_b.data_ptr(), sg_b.data_ptr(),
+              lo.data_ptr(), delta.data_ptr(), n_ref.data_ptr(),
+              *(d.data_ptr() for d in decs), v_out.data_ptr(), acc.data_ptr(),
+              R, T, cfg.signal_chunk, B, *extra, stream())
+    assert code == 0, code
+    return decs, v_out, acc
+
+
+def fill_fns(lib, cfg, layout_s=None):
+    """(callable (args) -> outputs) of the single-step fill of ``lib``: the
+    table's layout, or ``layout_s`` slots per lane through the layout entry."""
+    if cfg.use_skip:
+        consts = [cfg.log_p_stay, cfg.log_p_move, cfg.log_p_skip]
+        fn = lib.nadavca_viterbi_fill_skip if layout_s is None else \
+            lib.nadavca_viterbi_fill_skip_layout
+        planes = 2
+    else:
+        consts = [cfg.log_p_stay, cfg.log_p_move - cfg.log_p_stay]
+        fn = lib.nadavca_viterbi_fill if layout_s is None else \
+            lib.nadavca_viterbi_fill_layout
+        planes = 1
+    extra = consts + ([] if layout_s is None else [layout_s])
+    return lambda args: launch(fn, args, cfg, planes, extra)
+
+
+def pair_fn(lib, cfg_pair):
+    cs_, cm = cfg_pair.log_p_stay, cfg_pair.log_p_move
+    return lambda args: launch(lib.nadavca_viterbi_fill_pair, args, cfg_pair, 1,
+                               [cs_, cm, cs_ + cs_, cs_ + cm, cm + cm])
+
+
+def assert_same(tag, got, want):
+    (decs, v, acc), (p_decs, p_v, p_acc) = got, want
+    assert len(decs) == len(p_decs), tag
+    for d, p in zip(decs, p_decs):
+        n = int((d != p).sum())
+        assert n == 0, f"{tag}: {n} decision words differ"
+    live = p_v > -5e29
+    assert bool((live == (v > -5e29)).all()), tag
+    assert float(((v - p_v).abs() * live).max()) <= 1e-3, tag
+    torch.testing.assert_close(acc, p_acc, rtol=1e-5, atol=1e-3)
+
+
+def layouts(B: int):
+    """Every S the kernels take at band width B (W = B / (32 S) <= 8)."""
+    return [s for s in (2, 4, 8) if B % (32 * s) == 0 and B // (32 * s) <= 8]
+
+
+def demangle(name: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True).stdout
+    except FileNotFoundError:
+        return name
+    return out.strip() or name
+
+
+def ptxas_report() -> list:
+    """Registers, shared memory and spills of each fill kernel, from the
+    ``-Xptxas -v`` log the build keeps."""
+    log_path = os.path.join(os.path.dirname(kernel_build.build_library()), "ptxas.log")
+    text = open(log_path).read()
+    section = text.split("== viterbi_fill.cu")[1].split("\n== ")[0]
+    out, name = [], None
+    for line in section.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = demangle(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out.append({"kernel": name, "stack": int(m.group(1)),
+                        "spill_stores": int(m.group(2)), "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and out and out[-1]["kernel"] == name:
+            out[-1]["registers"] = int(m.group(1))
+            m2 = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem"] = int(m2.group(1)) if m2 else 0
+    return out
+
+
+BRANCHES = ("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC", "CALL", "BAR", "BRX", "JMP")
+
+
+def sass_instructions(body: str):
+    """(address, opcode, stall cycles) of each instruction of one function
+    in ``cuobjdump -sass`` output, and the branch targets. The stall count is
+    bits 105-108 of the 128-bit instruction (the control bits the compiler
+    sets for the warp scheduler), in the second 64-bit word."""
+    lines = body.splitlines()
+    instrs, targets = [], set()
+    for i, line in enumerate(lines):
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);"
+                      r"\s*/\* 0x[0-9a-f]{16} \*/", line)
+        if not m or i + 1 >= len(lines):
+            continue
+        hi = re.search(r"/\* (0x[0-9a-f]{16}) \*/", lines[i + 1])
+        stall = (int(hi.group(1), 16) >> 41) & 0xF if hi else 0
+        op = m.group(3)
+        instrs.append((int(m.group(1), 16), op, stall))
+        if op.split(".")[0] in ("BRA", "BSSY", "CALL", "JMP", "BRX"):
+            for t in re.findall(r"0x([0-9a-f]+)", m.group(4)):
+                targets.add(int(t, 16))
+    return instrs, targets
+
+
+def sass_report(out_dir: str) -> list:
+    """For each fill kernel, its unrolled sample loops: the basic blocks of a
+    chain warp (one SHFL.UP per sample and plane) and of a producer warp (one
+    SHFL.IDX of x per sample), each with its instructions and the compiler's
+    stall cycles per sample, and its opcodes by count. Blocks end at a
+    branch, a barrier or a branch target."""
+    so = kernel_build.build_library()
+    cuobjdump = os.path.join(os.path.dirname(kernel_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    keep, report = [], []
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = demangle(body.split("\n", 1)[0].strip())
+        if not any(f in name for f in FILL_NAMES):
+            continue
+        keep.append(f"Function : {name}\n{body}")
+        instrs, targets = sass_instructions(body)
+        blocks, cur = [], []
+        for ins in instrs:
+            if ins[0] in targets and cur:
+                blocks.append(cur)
+                cur = []
+            cur.append(ins)
+            if ins[1].split(".")[0] in BRANCHES:
+                blocks.append(cur)
+                cur = []
+        blocks.append(cur)
+        planes = 2 if "skip" in name else 1
+        entry = {"kernel": name, "instructions": len(instrs)}
+        for role, key, per in (("chain", "SHFL.UP", planes), ("producer", "SHFL.IDX", 1)):
+            # a producer block holds no SHFL.UP (a chain block may hold SHFL.IDX)
+            cands = [b for b in blocks if any(op.startswith(key) for _, op, _ in b)
+                     and (role == "chain"
+                          or not any(op.startswith("SHFL.UP") for _, op, _ in b))]
+            if not cands:
+                continue
+            big = max(cands, key=len)
+            samples = sum(op.startswith(key) for _, op, _ in big) // per
+            ops = collections.Counter(op.split(".")[0] for _, op, _ in big)
+            entry[role] = {"block_instructions": len(big), "samples": samples,
+                           "instructions_per_sample": len(big) / samples,
+                           "stall_cycles_per_sample": sum(st for _, _, st in big) / samples,
+                           "opcodes": dict(ops.most_common())}
+        report.append(entry)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "fill_sass.txt"), "w") as f:
+        f.write("\n".join(keep))
+    return report
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True, help="root of the older checkout")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="where fill_sass.txt goes (default: the build directory)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_fill_turns: no CUDA device", file=sys.stderr)
+        return 2
+    smi = lambda q: subprocess.run(
+        ["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    cs.emit({"nvidia_smi": smi("name,power.limit"),
+             "clocks": smi("clocks.sm,clocks.max.sm"), "torch": torch.__version__})
+    old = build_old(args.old)
+    new = kernel_build.load_library()
+    for B in range(128, 1025, 128):
+        for skip in (False, True):
+            assert new.nadavca_fill_slots_per_lane(B, skip) == \
+                cuda_dp.fill_layout(B, skip)[0], (B, skip)
+    cs.emit({"ptxas": ptxas_report()})
+    cs.emit({"sass": sass_report(
+        args.out or os.path.dirname(kernel_build.build_library()))})
+    reps = args.reps
+    for name, cfg, (batch, a) in batches(args.seed):
+        B = cfg.band_width
+        mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
+        fargs = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"])
+        steps = int(a["t_len"].max())
+        want = cuda_dp.viterbi_fill_plain(*fargs, cfg)
+        f_old, f_new = fill_fns(old, cfg), fill_fns(new, cfg)
+        assert_same(f"{name}: old", f_old(fargs), want)
+        assert_same(f"{name}: new", f_new(fargs), want)
+        assert_same(f"{name}: wrapper", cuda_dp.viterbi_fill(*fargs, cfg), want)
+        turns = [cs.event_ms(lambda: f(fargs), reps) for f in (f_old, f_new, f_new, f_old)]
+        cfg_pair = nt.AlignConfig(band_width=B, dp_pair_step=True)
+        p_old, p_new = pair_fn(old, cfg_pair), pair_fn(new, cfg_pair)
+        assert_same(f"{name}: pair", p_new(fargs), p_old(fargs))
+        pair_turns = [cs.event_ms(lambda: f(fargs), reps)
+                      for f in (p_old, p_new, p_new, p_old)]
+        S_kept, W_kept = cuda_dp.fill_layout(B, cfg.use_skip)
+        lays = layouts(B)
+        fns = {s: fill_fns(new, cfg, s) for s in lays}
+        for s in lays:
+            assert_same(f"{name}: S={s}", fns[s](fargs), want)
+        order = lays + lays[::-1]
+        ms = collections.defaultdict(list)
+        for s in order:
+            ms[s].append(cs.event_ms(lambda: fns[s](fargs), reps))
+        lay_out = [{"S": s, "W": B // (32 * s), "kept": s == S_kept, "ms_in_turns": ms[s],
+                    "ns_per_step": sum(ms[s]) / len(ms[s]) / steps * 1e6} for s in lays]
+        cs.emit({"batch": name, "R": batch.x.shape[0], "T": batch.x.shape[1], "B": B,
+                 "kernel": "viterbi_fill_skip" if cfg.use_skip else "viterbi_fill",
+                 "serial_steps": steps, "reps": reps, "layout_kept": [S_kept, W_kept],
+                 "old_new_new_old_ms": turns,
+                 "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
+                 "ns_per_step_old": (turns[0] + turns[3]) / 2 / steps * 1e6,
+                 "ns_per_step_new": (turns[1] + turns[2]) / 2 / steps * 1e6,
+                 "pair_fill_old_new_new_old_ms": pair_turns,
+                 "layouts": lay_out, "clocks_after": smi("clocks.sm")})
+        del want, mu_b, sg_b
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,15 +27,16 @@ def card():
     return torch.device("cuda")
 
 
-def _dp_inputs(card, B, seed=3):
+def _dp_inputs(card, B, seed=3, C=128):
     rng = np.random.default_rng(seed)
-    R, n_chunks, C, N = 16, 6, 128, 400
-    T = n_chunks * C
+    R, T, N = 16, 768, 400
+    n_chunks = T // C
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
     mu = put(rng.normal(0, 1, (R, N)).astype(np.float32))
     sigma = put(rng.uniform(0.1, 0.4, (R, N)).astype(np.float32))
     delta = rng.integers(0, 20, (R, n_chunks)).astype(np.int32)
     delta[:, 0] = 0
+    delta[5, 2] = B + 3                  # the whole row of read 5 goes dead
     lo = np.cumsum(delta, axis=1).astype(np.int32)
     n_ref = put(rng.integers(N // 2, N, R).astype(np.int32))
     t_len = rng.integers(1, T + 1, R).astype(np.int32)
@@ -59,10 +60,16 @@ def _assert_fill_equal(got, want):
     torch.testing.assert_close(acc, p_acc, rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("B", [128, 256])
-def test_kernels_match_plain_versions(card, B):
-    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B)
-    cfg = AlignConfig(band_width=B, snp_rescore="fixed")
+# band widths of one, two, three and eight warps of the fill (1024: the most
+# it takes, with more than 48 KB of shared memory); C = 32 makes every
+# decision word a chunk of its own. The walk takes B up to 256.
+FILL_SHAPES = [(128, 128), (256, 128), (384, 128), (1024, 128), (128, 32), (384, 32)]
+
+
+@pytest.mark.parametrize("B, C", FILL_SHAPES)
+def test_kernels_match_plain_versions(card, B, C):
+    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, C=C)
+    cfg = AlignConfig(band_width=B, signal_chunk=C, snp_rescore="fixed")
     before = _launches()
     mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
     p_mu, p_sg = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
@@ -72,12 +79,15 @@ def test_kernels_match_plain_versions(card, B):
     decs, v, acc = cuda_dp.viterbi_fill(*args)
     _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*args))
 
-    j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
-    path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
-    assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
-    _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
-    want = {k: n + (k in ("band_gather", "viterbi_fill", "path_counts"))
-            + 2 * (k == "backtrack") for k, n in before.items()}
+    walk = B <= 256
+    if walk:
+        j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
+        path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
+        assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+        _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
+    want = {k: n + (k in ("band_gather", "viterbi_fill"))
+            + walk * ((k == "path_counts") + 2 * (k == "backtrack"))
+            for k, n in before.items()}
     assert _launches() == want
 
 
@@ -93,51 +103,53 @@ def _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path):
     assert torch.equal(cnt, cuda_dp.path_counts_plain(path, n_lanes, t_cnt))
 
 
-@pytest.mark.parametrize("B", [128, 256])
-def test_skip_and_pair_kernels_match_plain_versions(card, B):
-    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, seed=4)
+@pytest.mark.parametrize("B, C", FILL_SHAPES)
+def test_skip_and_pair_kernels_match_plain_versions(card, B, C):
+    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, seed=4, C=C)
     mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
     before = _launches()
 
     # the skip fill (two planes) and the two-plane walk, through the two
     # names every caller uses
-    cfg = AlignConfig(band_width=B, use_skip=True, log_p_skip=-4.6)
+    cfg = AlignConfig(band_width=B, signal_chunk=C, use_skip=True, log_p_skip=-4.6)
     args = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref, cfg)
     decs, v, acc = cuda_dp.viterbi_fill(*args)
     assert len(decs) == 2
     _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*args))
     assert not bool((decs[0] & decs[1]).any())      # advance 1 or 2, never both
-    j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
-    path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
-    assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
-    _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
-    live = torch.arange(path.shape[1], device=card)[None, 1:] < t_len[:, None]
-    step = (path[:, 1:] - path[:, :-1]) * live
-    assert int(step.max()) == 2 and int(step.min()) >= 0
+    walk = B <= 256
+    if walk:
+        j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
+        path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
+        assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+        _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
+        live = torch.arange(path.shape[1], device=card)[None, 1:] < t_len[:, None]
+        step = (path[:, 1:] - path[:, :-1]) * live
+        assert int(step.max()) == 2 and int(step.min()) >= 0
 
     # the disabled skip (log_p_skip = -1e30, the default): sums of two such
     # numbers stay finite (a cell dead for several steps may still set a skip
     # bit; no path reaches it)
-    cfg_off = AlignConfig(band_width=B, use_skip=True)
+    cfg_off = AlignConfig(band_width=B, signal_chunk=C, use_skip=True)
     args_off = args[:-1] + (cfg_off,)
     got = cuda_dp.viterbi_fill(*args_off)
     _assert_fill_equal(got, cuda_dp.viterbi_fill_plain(*args_off))
     assert bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all())
 
     # the two-sample fill: one plane, the single-step fill's outputs
-    cfg_pair = AlignConfig(band_width=B, dp_pair_step=True)
+    cfg_pair = AlignConfig(band_width=B, signal_chunk=C, dp_pair_step=True)
     args_pair = args[:-1] + (cfg_pair,)
     got = cuda_dp.viterbi_fill(*args_pair)
     assert len(got[0]) == 1
     _assert_fill_equal(got, cuda_dp.viterbi_fill_pair_plain(*args_pair))
-    single = cuda_dp.viterbi_fill(*args[:-1], AlignConfig(band_width=B))
+    single = cuda_dp.viterbi_fill(*args[:-1], AlignConfig(band_width=B, signal_chunk=C))
     torch.testing.assert_close(got[2] + got[1].max(1).values,
                                single[2] + single[1].max(1).values,
                                rtol=1e-5, atol=2e-3)
     torch.cuda.synchronize()
     want = dict(before, viterbi_fill_skip=before["viterbi_fill_skip"] + 2,
-                backtrack_skip=before["backtrack_skip"] + 2,
-                path_counts=before["path_counts"] + 1,
+                backtrack_skip=before["backtrack_skip"] + 2 * walk,
+                path_counts=before["path_counts"] + walk,
                 viterbi_fill_pair=before["viterbi_fill_pair"] + 1,
                 viterbi_fill=before["viterbi_fill"] + 1)
     assert _launches() == want

@@ -6,17 +6,22 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nadavca_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, drives the port's main path —
-the default configuration: reads → banded Viterbi → local re-DP rescore with
-genome tables → SNP calls — through the public ``api`` at a realistic batch
-size, checks the result, and prints one JSON line per phase. Then the same
-entry points with the skip transition (``use_skip=True, log_p_skip=-4.6``) on
-reads simulated with pore skips, at the same size: the skip fill with two
-decision planes and the two-plane backtrack. Further paths run at a smaller
-depth: ``dp_pair_step=True`` (the two-sample fill), the joint refiner
-(``snp_joint_rescore``, with and without ``snp_joint_skip``),
-``snp_rescore="fixed"`` (the closed-form rescore) and the local rescore
-without genome tables. The last line is
+against its plain PyTorch version on the card (at the main and the wide
+shape; the walk also at 384 and 1024 slots, the fused tables rescore also on
+rows shorter than 2304 samples), drives the port's main path — the default
+configuration: reads → banded Viterbi (the fill gathering its own band
+levels) → the local re-DP rescore with genome tables in one kernel → SNP
+calls — through the public ``api`` at a realistic batch size, checks the
+result, and prints one JSON line per phase. Then ``band_width=384`` through
+the same entry points on one batch, and the skip transition
+(``use_skip=True, log_p_skip=-4.6``) on reads simulated with pore skips, at
+the main path's size: the skip fill with two decision planes and the
+two-plane backtrack. Further paths run at a smaller depth:
+``dp_pair_step=True`` (the standalone band gather and the two-sample fill),
+the joint refiner (``snp_joint_rescore``, with and without
+``snp_joint_skip``), ``snp_rescore="fixed"`` (the closed-form rescore) and
+the local rescore without genome tables (the shear gather and K6). The last
+line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
 0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
 cuts every size (for a quick look, not for numbers), ``--profile`` adds a
@@ -49,6 +54,11 @@ from nadavca_tpu_torch.utils import kernel_build
 # float32 rate outside the tensor cores (the kernels here use no tensor core)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# float32 instructions per second outside the tensor cores (132 SMs x 128
+# lanes x 1.98 GHz): an add, a multiply or a maximum is one instruction, and
+# under -fmad=false no multiply-add fuses two, so this is the instruction
+# floor of the kernels' arithmetic
+FP32_INSTR_PER_S = 67e12 / 2
 
 KERNEL_INFO = {
     "band_gather": dict(
@@ -76,7 +86,8 @@ KERNEL_INFO = {
     "shear_gather": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/shear_gather.cu",
         replaces="nadavca_tpu/ops/pallas_rescore.py:627"),
-    "rescore_fill_tab": dict(
+    # K5 with K4's gather and the tensor code around them folded in
+    "rescore_local_tab": dict(
         route="cuda", source="nadavca_tpu_torch/csrc/rescore.cu",
         replaces="nadavca_tpu/ops/pallas_rescore.py:218"),
     "rescore_fill": dict(
@@ -84,17 +95,21 @@ KERNEL_INFO = {
         replaces="nadavca_tpu/ops/pallas_rescore.py:191"),
 }
 # the __global__ function behind each wrapper, as the profiler names it (the
-# counts run inside the walk's launch)
+# counts run inside the walk's launch, the main path's band gather inside the
+# fill's)
 DEVICE_FUNCTION = {
     "band_gather": "band_gather_kernel", "viterbi_fill": "viterbi_fill_kernel<",
     "backtrack": "backtrack_kernel<", "path_counts": None,
     "viterbi_fill_skip": "viterbi_fill_skip_kernel<",
     "viterbi_fill_pair": "viterbi_fill_pair_kernel",
     "backtrack_skip": "backtrack_skip_kernel<",
-    "shear_gather": "shear_gather_kernel", "rescore_fill_tab": "rescore_tab_kernel",
+    "shear_gather": "shear_gather_kernel",
+    "rescore_local_tab": "rescore_local_tab_kernel<",
     "rescore_fill": "rescore_kernel<",
 }
 ALL_KERNELS = cuda_dp.KERNELS + cuda_rescore.KERNELS
+# every launch count: the ten kernels' and the band gather folded into the fills
+ALL_COUNTERS = cuda_dp.COUNTERS + cuda_rescore.KERNELS
 # kernel against plain version in the rescore: the same float32 operations in
 # the same order (no fused multiply-add on either side), so the difference is
 # expected to be 0; the bound leaves room for a last-bit difference per step
@@ -113,7 +128,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {k.__name__: k.launches for k in ALL_KERNELS}
+    return {k.__name__: k.launches for k in ALL_COUNTERS}
 
 
 def emit(obj) -> None:
@@ -136,6 +151,23 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
     b.record()
     sync()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device time per call of ``fn``: the kernels' time in a
+    ``torch.profiler`` trace of ``reps`` calls, without the host's gaps
+    between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA")
+    return us / reps / 1e3
 
 
 def wall_ms(fn) -> float:
@@ -192,12 +224,14 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
     N = batch.mu.shape[1]
     out = {}
 
-    # --- band gather: a gather computes nothing, so exact
+    # --- the standalone band gather (the two-sample fill's): a gather
+    # computes nothing, so exact
     mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
     sync()
     p_mu, p_sg = cuda_dp.band_gather_plain(a["mu"], a["sigma"], a["lo"], B)
     err = max(float((mu_b - p_mu).abs().max()), float((sg_b - p_sg).abs().max()))
     assert err == 0.0, f"{tag}: band_gather differs from its plain version ({err})"
+    del mu_b, sg_b
     idx = (a["lo"].long()[:, :, None]
            + torch.arange(B, device="cuda")[None, None, :]).reshape(R, -1)
     pad = max(int(idx.max()) + 1 - N, 0)
@@ -207,9 +241,14 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
     # kernel and yardstick in turns (kernel, library, library, kernel): both
     # are a few microseconds, near the launch overhead. The yardstick is two
     # torch.gather calls on pre-padded rows with a prebuilt index (no
-    # transpose to chunk-major, index build not timed)
+    # transpose to chunk-major, index build not timed); the same gathers
+    # followed by the transpose to the kernel's chunk-major layout are timed
+    # once beside them
     kern = lambda: cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
     lib_call = lambda: (torch.gather(mu_pad, 1, idx), torch.gather(sg_pad, 1, idx))
+    chunk_major = lambda: tuple(
+        torch.gather(v, 1, idx).reshape(R, n_chunks, B).transpose(0, 1).contiguous()
+        for v in (mu_pad, sg_pad))
     turns = [event_ms(f, reps) for f in (kern, lib_call, lib_call, kern)]
     out["band_gather"] = dict(
         max_abs_err=err, ms=(turns[0] + turns[3]) / 2,
@@ -217,18 +256,25 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
             a["mu"], a["sigma"], a["lo"], B), 3, 1),
         library_ms=(turns[1] + turns[2]) / 2,
         ms_in_turns=[turns[0], turns[3]], library_ms_in_turns=[turns[1], turns[2]],
+        library_chunk_major_ms=event_ms(chunk_major, reps),
+        # the same calls by the profiler's device time, host gaps left out
+        device_ms=device_ms(kern, reps), library_device_ms=device_ms(lib_call, reps),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         bytes=nbytes, operations=0)
+    out["band_gather"]["no_slower_than_library_in_turns"] = (
+        max(turns[0], turns[3]) <= min(turns[1], turns[2]))
     del idx, mu_pad, sg_pad
 
-    # --- fill: decision words exact; V and acc within float32 rounding of a
-    # 128-step chunk (the two sides run the same operations, but logf and the
-    # order inside the row maximum may differ in the last bit)
-    fill_args = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"], cfg)
+    # --- fill, with the band gather in its producer warps: decision words
+    # exact; V and acc within float32 rounding of a 128-step chunk (the two
+    # sides run the same operations, but logf and the order inside the row
+    # maximum may differ in the last bit)
+    rows = (a["x"], a["t_len"], a["mu"], a["sigma"], a["lo"], a["delta"], a["n_ref"])
     # 2 mul + 2 add (emission), add, compare, max, add for each live cell
     out["viterbi_fill"], decs, v_fin, acc = check_fill(
-        tag, "viterbi_fill", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_plain,
-        fill_args, batch, ops_per_cell=8, reps=reps)
+        tag, "viterbi_fill", lambda: cuda_dp.viterbi_fill(*rows, cfg),
+        lambda: plain_fill(cuda_dp.viterbi_fill_plain, rows, cfg), batch, cfg,
+        ops_per_cell=8, reps=reps)
 
     # --- backtrack and its counts epilogue: an integer walk over the same
     # bits, so exact
@@ -237,16 +283,25 @@ def check_kernels(tag: str, batch, a, cfg, reps: int):
     return out
 
 
-def check_fill(tag, name, wrapper, plain, fill_args, batch, ops_per_cell, reps):
-    """One fill wrapper against its plain version: every plane of decision
-    words equal, V and acc within float32 rounding. Returns (numbers, decs, V,
-    acc) of the kernel."""
-    x, cfg = fill_args[0], fill_args[-1]
-    R, T = x.shape
+def plain_fill(fill_plain, rows, cfg):
+    """The plain band gather and a plain fill: what the fill kernels compute
+    from the level rows."""
+    x, t_len, mu, sigma, lo, delta, n_ref = rows
+    mu_b, sg_b = cuda_dp.band_gather_plain(mu, sigma, lo, cfg.band_width)
+    return fill_plain(x, t_len, mu_b, sg_b, lo, delta, n_ref, cfg)
+
+
+def check_fill(tag, name, run, plain, batch, cfg, ops_per_cell, reps, bands=False):
+    """One fill against its plain version: every plane of decision words
+    equal, V and acc within float32 rounding. ``run`` and ``plain`` take no
+    argument; ``bands``: the kernel reads gathered bands, not the level rows.
+    Returns (numbers, decs, V, acc) of the kernel."""
+    R, T = batch.x.shape
+    N = batch.mu.shape[1]
     B, n_chunks = cfg.band_width, T // cfg.signal_chunk
-    decs, v_fin, acc = wrapper(*fill_args)
+    decs, v_fin, acc = run()
     sync()
-    (p_decs, p_v, p_acc), plain_ms = timed(lambda: plain(*fill_args))
+    (p_decs, p_v, p_acc), plain_ms = timed(plain)
     assert len(decs) == len(p_decs)
     for p, (dec, p_dec) in enumerate(zip(decs, p_decs)):
         n_diff = int((dec != p_dec).sum())
@@ -258,12 +313,12 @@ def check_fill(tag, name, wrapper, plain, fill_args, batch, ops_per_cell, reps):
     tol_acc = 1e-3 + 1e-5 * float(p_acc.abs().max())
     assert err_v <= 1e-3 and err_acc <= tol_acc, (tag, name, err_v, err_acc, tol_acc)
     live_steps = int(batch.t_len.astype(np.int64).sum())
-    nbytes = (R * T * 4 + 2 * n_chunks * R * B * 4 + 2 * R * n_chunks * 4
+    levels = 2 * n_chunks * R * B * 4 if bands else 2 * R * N * 4
+    nbytes = (R * T * 4 + levels + 2 * R * n_chunks * 4
               + 2 * R * 4 + len(decs) * (T // 32) * R * B * 4 + R * B * 4 + R * 4)
     serial_steps = int(batch.t_len.max())
     nums = dict(
-        max_abs_err=max(err_v, err_acc),
-        ms=event_ms(lambda: wrapper(*fill_args), reps),
+        max_abs_err=max(err_v, err_acc), ms=event_ms(run, reps),
         plain_ms=plain_ms, library_ms=None,
         **bound(nbytes, ops_per_cell * live_steps * B),
         serial_steps=serial_steps, planes=len(decs))
@@ -329,6 +384,30 @@ def check_backtrack(tag, name, decs, v_fin, acc, a, C, n_lanes, reps):
     return nums, counts, path
 
 
+def check_wide_walks(records, records_skip, model, reps: int) -> dict:
+    """The walk (one plane, and two under skip) and its counts at B = 384 and
+    1024 against their plain versions, on the fill kernel's words for
+    ``records`` (and ``records_skip``) banded that wide."""
+    out = {}
+    for B in (384, 1024):
+        for name, recs, fields in (("backtrack", records, {}),
+                                   ("backtrack_skip", records_skip, SKIP_FIELDS)):
+            cfg_b = nt.AlignConfig(band_width=B, **fields)
+            batch_b, a_b = staged_batch(recs, model, cfg_b)
+            decs, v_fin, acc = cuda_dp.viterbi_fill(
+                a_b["x"], a_b["t_len"], a_b["mu"], a_b["sigma"], a_b["lo"],
+                a_b["delta"], a_b["n_ref"], cfg_b)
+            nums, counts, _ = check_backtrack(
+                f"B={B}", name, decs, v_fin, acc, a_b, cfg_b.signal_chunk,
+                cuda_rescore.count_lanes(batch_b.mu.shape[1]), reps)
+            out[f"{name}_B{B}"] = dict(
+                R=batch_b.x.shape[0], T=batch_b.x.shape[1], max_abs_err=0.0,
+                ms=nums["ms"], plain_ms=nums["plain_ms"], bound_ms=nums["bound_ms"],
+                bound_by=nums["bound_by"], counts_ms=counts["ms"])
+            del decs, v_fin, acc, a_b
+    return out
+
+
 def count_skips(path, t_len) -> int:
     """Advance-by-2 steps among the live samples of a batch of paths."""
     T = path.shape[1]
@@ -343,14 +422,14 @@ def check_skip_kernels(tag: str, batch, a, cfg, reps: int):
     batch without skip. Returns {kernel name: numbers}."""
     B, C = cfg.band_width, cfg.signal_chunk
     out = {}
-    mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
-    args = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"])
+    rows = (a["x"], a["t_len"], a["mu"], a["sigma"], a["lo"], a["delta"], a["n_ref"])
     # 15 operations per live cell, the TPU launcher's own count with two
     # planes: emission 4, three transition adds, two maxima, two compares,
     # the and-not, the final add, two pack updates
     out["viterbi_fill_skip"], decs, v_fin, acc = check_fill(
-        tag, "viterbi_fill_skip", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_plain,
-        args + (cfg,), batch, ops_per_cell=15, reps=reps)
+        tag, "viterbi_fill_skip", lambda: cuda_dp.viterbi_fill(*rows, cfg),
+        lambda: plain_fill(cuda_dp.viterbi_fill_plain, rows, cfg), batch, cfg,
+        ops_per_cell=15, reps=reps)
     assert len(decs) == 2 and not bool((decs[0] & decs[1]).any())
     out["backtrack_skip"], counts, path = check_backtrack(
         tag, "backtrack_skip", decs, v_fin, acc, a, C,
@@ -362,17 +441,23 @@ def check_skip_kernels(tag: str, batch, a, cfg, reps: int):
     del decs, path
 
     cfg_pair = nt.AlignConfig(band_width=B, dp_pair_step=True)
+    # the two-sample fill takes the standalone band gather's bands: timed on
+    # them, the gather apart
+    mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
+    bands = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"])
     # per pair: three emissions (12), K0 K1 K2 (4), three sums, two maxima,
     # two compares, one add (8): 12 for each live cell
     out["viterbi_fill_pair"], decs, v_fin, acc = check_fill(
-        tag, "viterbi_fill_pair", cuda_dp.viterbi_fill, cuda_dp.viterbi_fill_pair_plain,
-        args + (cfg_pair,), batch, ops_per_cell=12, reps=reps)
+        tag, "viterbi_fill_pair", lambda: cuda_dp.viterbi_fill_pair(*bands, cfg_pair),
+        lambda: plain_fill(cuda_dp.viterbi_fill_pair_plain, rows, cfg_pair), batch,
+        cfg_pair, ops_per_cell=12, reps=reps, bands=True)
     assert len(decs) == 1
-    # single-step and two-sample fill in turns on the same inputs
+    # the single-step fill (its own gather) and the two-sample fill with the
+    # standalone gather, in turns on the same inputs
     cfg_single = nt.AlignConfig(band_width=B)
     turns = []
     for c in (cfg_single, cfg_pair, cfg_pair, cfg_single):
-        turns.append(event_ms(lambda: cuda_dp.viterbi_fill(*args, c), reps))
+        turns.append(event_ms(lambda: cuda_dp.viterbi_fill(*rows, c), reps))
     out["viterbi_fill_pair"]["single_step_ms_in_turns"] = [turns[0], turns[3]]
     out["viterbi_fill_pair"]["pair_ms_in_turns"] = [turns[1], turns[2]]
     return out
@@ -404,21 +489,75 @@ def live_close(tag, got, want):
     return float(diff.max())
 
 
-def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int):
+def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int,
+                          k6: bool = True):
     """K4-K6 against their plain versions on the card at this batch's shapes,
-    on the path and counts the card's walk gave. Returns {kernel name:
-    numbers}."""
+    on the path and counts the card's walk gave (K4 and K6, the path without
+    genome tables, only with ``k6``). Returns {kernel name: numbers}."""
     R, T = batch.x.shape
     L = batch.codes.shape[1]
     N = batch.ids.shape[1]
     k, t_w = cfg.k, cfg.snp_local_window
     x, t_len, codes = a["x"], a["t_len"], a["codes"]
+    slab = T >= cuda_rescore.SPAN + 256
     out = {}
 
-    # --- K4 shear gather: a gather computes nothing, so exact
-    S, W, kk, p_lo, _ = cuda_rescore.local_windows(path, t_len, codes, N, k, t_w, cnt)
+    # --- K5 with K4's gather and the tensor code around them: the same
+    # operations in the same order as the plain composition
+    local_args = (x, path, t_len, cnt, codes, a["woff"], tables.tab, tables.valid, N,
+                  cfg, t_w)
+    # the offsets' range from the host, as the pipeline hands it over
+    kern = lambda: cuda_rescore.rescore_local_tab(*local_args,
+                                                  woff_range=a["woff_range"])
+    got = kern()
+    sync()
+    want, plain_ms = timed(lambda: cuda_rescore.rescore_local_tab_plain(*local_args))
+    assert torch.equal(got == 0, want == 0), f"{tag}: rescore_local_tab masks differ"
+    err = live_close(f"{tag}: rescore_local_tab", got, want)
+    # what this run's data needs: the DP over the live samples of the
+    # positions that are not masked (8 operations per cell and sample, 4 * k
+    # cells), the samples of x and the inputs read once, the output written
+    # once
+    S, W, kk, p_lo, valid_i = cuda_rescore.local_windows(path, t_len, codes, N, k, t_w,
+                                                         cnt)
     S_c = S.clamp(0, T - 1).contiguous()
-    slab = T >= cuda_rescore.SPAN + 256
+    if slab:
+        W = torch.where(cuda_rescore.span_ok(S_c, T), W, torch.zeros_like(W))
+    cols = a["woff"].long()[:, None] + torch.arange(L, device="cuda")
+    computed = valid_i & (kk == k) & tables.valid[cols] & (W > 0)
+    n_cols = int(torch.unique(cols).numel())
+    w_sum = int(W[computed].sum())
+    ops = 8 * 4 * k * w_sum
+    nbytes = (R * T * 4 + R * cnt.shape[1] * 4 + 2 * R * 4 + R * L * 4 + R * 4
+              + n_cols * (3 * 4 * k * 4 + 1) + R * L * 4 * 4)
+    out["rescore_local_tab"] = dict(
+        max_abs_err=err, ms=event_ms(kern, reps), device_ms=device_ms(kern, reps),
+        plain_ms=plain_ms, library_ms=None, **bound(nbytes, ops),
+        instruction_floor_ms=ops / FP32_INSTR_PER_S * 1e3,
+        live_samples=w_sum, positions_computed=int(computed.sum()),
+        mean_window=w_sum / max(int(computed.sum()), 1), max_window=int(W.max()),
+        slab_rule=slab, zero_share=float((want == 0).all(2).float().mean()))
+    del got, want
+    if slab:
+        # a synthetic count row in which every odd read's tiles spread beyond
+        # the slab: the span mask, which simulated reads hardly ever trip
+        cnt_syn = cnt.clone()
+        ramp = (torch.arange(cnt.shape[1], device="cuda", dtype=torch.int32) * 40)
+        cnt_syn[1::2] = ramp.clamp(max=T - 1)
+        syn_args = (x, path, t_len, cnt_syn) + local_args[4:]
+        got = cuda_rescore.rescore_local_tab(*syn_args, woff_range=a["woff_range"])
+        want = cuda_rescore.rescore_local_tab_plain(*syn_args)
+        assert torch.equal(got == 0, want == 0), f"{tag}: span masks differ"
+        live_close(f"{tag}: rescore_local_tab on broken tiles", got, want)
+        masked = (want[1::2] == 0).all(2).float().mean()
+        assert 0.0 < float(masked) < 1.0, float(masked)
+        out["rescore_local_tab"]["broken_tile_zero_share_odd_reads"] = float(masked)
+        del got, want
+    if not k6:
+        return out
+
+    # --- K4 shear gather (the path without genome tables): a gather
+    # computes nothing, so exact
     xs = cuda_rescore.shear_gather(x, S_c, t_w, slab=slab)
     sync()
     p_xs, plain_ms = timed(lambda: cuda_rescore.shear_gather_plain(x, S_c, t_w, slab=slab))
@@ -450,29 +589,11 @@ def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int)
         out["shear_gather"]["broken_tile_zero_share"] = zero_share
         del got, want
 
-    # --- K5 / K6: the same operations in the same order
-    if slab:
-        W = torch.where(cuda_rescore.span_ok(S_c, T), W, torch.zeros_like(W))
+    # --- K6: the same operations in the same order
     W, kk = W.contiguous(), kk.contiguous()
     ref = codes.clamp(0, 3)
     w_sum = int(W.sum())
     xs_bytes = int(W.clamp(min=1).sum()) * 4       # step 0 is always read
-    ops = 8 * 4 * k * w_sum
-
-    tab_args = (xs, W, kk, ref, a["woff"], tables.tab, cfg, t_w)
-    got = cuda_rescore.rescore_fill_tab(*tab_args)
-    sync()
-    want, plain_ms = timed(lambda: cuda_rescore.rescore_fill_tab_plain(*tab_args))
-    err = live_close(f"{tag}: rescore_fill_tab", got, want)
-    out["rescore_fill_tab"] = dict(
-        max_abs_err=err,
-        ms=event_ms(lambda: cuda_rescore.rescore_fill_tab(*tab_args), reps),
-        plain_ms=plain_ms, library_ms=None,
-        **bound(xs_bytes + R * L * (3 * 4 * k * 4 + 3 * 4 + 4 * 4) + R * 4, ops),
-        live_samples=w_sum, mean_window=w_sum / max(int((W > 0).sum()), 1),
-        max_window=int(W.max()))
-    del got, want
-
     em, mu, iv, _ = cuda_rescore.batch_constants(p_lo, kk, codes, a["ids"],
                                                  a["lm"], a["ls"], k)
     arr_args = (xs, em, mu, iv, W, kk, ref, cfg, t_w)
@@ -484,7 +605,7 @@ def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int)
         max_abs_err=err,
         ms=event_ms(lambda: cuda_rescore.rescore_fill(*arr_args), reps),
         plain_ms=plain_ms, library_ms=None,
-        **bound(xs_bytes + R * L * (3 * 4 * k * 4 + 3 * 4 + 4 * 4), ops),
+        **bound(xs_bytes + R * L * (3 * 4 * k * 4 + 3 * 4 + 4 * 4), 8 * 4 * k * w_sum),
         live_samples=w_sum)
     return out
 
@@ -622,39 +743,31 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
     split["h2d"] = wall_ms(lambda: st.update(
         a=pipeline.stage_batch(batch, model, cfg, "cuda", device="cuda", subst=tables)))
     a = st["a"]
-    B, C = cfg.band_width, cfg.signal_chunk
+    C = cfg.signal_chunk
     k, t_w = cfg.k, cfg.snp_local_window
-    split["band_gather"] = wall_ms(lambda: st.update(
-        bands=cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)))
+    # the fill with its band gather
     split["viterbi_fill"] = wall_ms(lambda: st.update(fill=cuda_dp.viterbi_fill(
-        a["x"], a["t_len"], *st["bands"], a["lo"], a["delta"], a["n_ref"], cfg)))
+        a["x"], a["t_len"], a["mu"], a["sigma"], a["lo"], a["delta"], a["n_ref"], cfg)))
     decs, v_fin, acc = st["fill"]
     split["final_slot"] = wall_ms(lambda: st.update(end=cuda_dp.final_slot_and_score(
         v_fin, acc, a["lo"][:, -1], a["n_ref"])))
-    T = batch.x.shape[1]
     N = batch.ids.shape[1]
     # the walk with its counts epilogue, as the local rescore's path runs it
     split["backtrack"] = wall_ms(lambda: st.update(walk=cuda_dp.backtrack(
         decs, a["lo"], a["delta"], st["end"][0], C, t_len=a["t_len"],
         n_lanes=cuda_rescore.count_lanes(N))))
     path, cnt = st["walk"]
-    # the local rescore as a whole, then its two kernels on the same inputs;
-    # what is left is the tensor code between them
+    # the local rescore as the pipeline calls it, then its one kernel on the
+    # same inputs; what is left is the host code around the launch
     split["rescore_total"] = wall_ms(lambda: st.update(
         ll=cuda_rescore.base_loglik_local_cuda(
             a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
-            t_w=t_w, tables=tables, window_off=a["woff"], cnt=cnt)))
-    S, W, kk, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"], N, k, t_w,
-                                                cnt)
-    S_c = S.clamp(0, T - 1).contiguous()
-    split["shear_gather"] = wall_ms(lambda: st.update(
-        xs=cuda_rescore.shear_gather(a["x"], S_c, t_w)))
-    split["rescore"] = wall_ms(lambda: cuda_rescore.rescore_fill_tab(
-        st["xs"], W.contiguous(), kk.contiguous(), a["codes"].clamp(0, 3), a["woff"],
-        tables.tab, cfg, t_w))
-    del st["xs"]
-    split["rescore_glue"] = split["rescore_total"] - sum(
-        split[n] for n in ("shear_gather", "rescore"))
+            t_w=t_w, tables=tables, window_off=a["woff"], cnt=cnt,
+            window_off_range=a["woff_range"])))
+    split["rescore_kernel"] = wall_ms(lambda: cuda_rescore.rescore_local_tab(
+        a["x"], path, a["t_len"], cnt, a["codes"], a["woff"], tables.tab, tables.valid,
+        N, cfg, t_w, woff_range=a["woff_range"]))
+    split["rescore_host"] = split["rescore_total"] - split["rescore_kernel"]
     n = batch.n_reads
     G = len(reference.contigs[0])
     accs = callmod.make_accumulators(G, with_votes=True, device="cuda")
@@ -786,8 +899,8 @@ def skip_phase(seed, model, n_reads, read_len, genome_len, batch_reads) -> dict:
                                         batch_reads)
     launches = read_launches()
     expect_launches("skip", launches, {k: 2 * n_batches for k in (
-        "band_gather", "viterbi_fill_skip", "backtrack_skip", "path_counts",
-        "shear_gather", "rescore_fill_tab")})
+        "band_gather_folded", "viterbi_fill_skip", "backtrack_skip", "path_counts",
+        "rescore_local_tab")})
     assert len(alns) >= 0.9 * len(reads), (len(alns), len(reads))
 
     # (a) the same entry points on the CPU, where the plain versions run
@@ -860,7 +973,7 @@ def pair_phase(reference, sub, model, batch_reads) -> dict:
     n_b = -(-len(p_alns) // batch_reads)
     expect_launches("pair", launches, {k: n_b for k in (
         "band_gather", "viterbi_fill_pair", "backtrack", "path_counts",
-        "shear_gather", "rescore_fill_tab")})
+        "rescore_local_tab")})
     s_alns = api.align_reads(reference, sub, config=cfg, **kw)
     assert [a.read_id for a in p_alns] == [a.read_id for a in s_alns]
     for p, q in zip(p_alns, s_alns):
@@ -944,8 +1057,8 @@ def joint_phase(reference, sub, model, batch_reads) -> dict:
     return out
 
 
-DEVICE_STAGES = ("h2d", "band_gather", "viterbi_fill", "final_slot", "backtrack",
-                 "rescore_total", "scatter")
+DEVICE_STAGES = ("h2d", "viterbi_fill", "final_slot", "backtrack", "rescore_total",
+                 "scatter")
 
 
 def main() -> int:
@@ -1017,6 +1130,29 @@ def main() -> int:
     del res
     batch_w, a_w = staged_batch(records_w, model, cfg_wide)
     wide_nums = check_kernels("wide", batch_w, a_w, cfg_wide, reps=5)
+    # the fused rescore at the wide shape, on the wide band's path
+    cfg_wide_local = nt.AlignConfig(band_width=cfg.band_width_long)
+    tables_w = build_subst_tables(ref_w, model, device="cuda")
+    _, a_wl = staged_batch(records_w, model, cfg_wide_local, subst=tables_w)
+    res, _ = cuda_dp.cuda_viterbi_batch(
+        a_wl["x"], a_wl["t_len"], a_wl["mu"], a_wl["sigma"], a_wl["n_ref"], a_wl["lo"],
+        a_wl["delta"], cfg_wide_local,
+        count_lanes=cuda_rescore.count_lanes(batch_w.mu.shape[1]))
+    wide_nums.update(check_rescore_kernels("wide", batch_w, a_wl, res.path, res.counts,
+                                           cfg_wide_local, tables_w, reps=5, k6=False))
+    del res, a_wl, tables_w
+    # and on short reads, below T = 2304: no slab rule, the whole row staged
+    _, ref_sh, reads_sh, _ = make_world(args.seed + 5, 3000, 0, batch_reads // 2, 150)
+    _, records_sh = records_of(reads_sh, ref_sh, model, cfg)
+    tables_sh = build_subst_tables(ref_sh, model, device="cuda")
+    batch_sh, a_sh = staged_batch(records_sh, model, cfg, subst=tables_sh)
+    assert batch_sh.x.shape[1] < cuda_rescore.SPAN + 256, batch_sh.x.shape
+    res, _ = cuda_dp.cuda_viterbi_batch(
+        a_sh["x"], a_sh["t_len"], a_sh["mu"], a_sh["sigma"], a_sh["n_ref"], a_sh["lo"],
+        a_sh["delta"], cfg, count_lanes=cuda_rescore.count_lanes(batch_sh.mu.shape[1]))
+    short_nums = check_rescore_kernels("short", batch_sh, a_sh, res.path, res.counts,
+                                       cfg, tables_sh, reps=10, k6=False)
+    del res, a_sh, tables_sh
     check_argmax_tie()
     span = check_span_mask()
     del a_w, a
@@ -1033,12 +1169,17 @@ def main() -> int:
     batch_sw, a_sw = staged_batch(records_sw, model, cfg_skip_wide)
     wide_nums.update(check_skip_kernels("wide, skips", batch_sw, a_sw, cfg_skip_wide,
                                         reps=5))
+    # the walk past 256 slots, one and two planes, on the main batches' reads
+    walks = check_wide_walks(top, records_s, model, reps=5)
     emit({"phase": "kernel_checks", "argmax_first_max": True, **span, "shapes": [
         {"R": b.x.shape[0], "T": b.x.shape[1], "B": c.band_width, "N": b.mu.shape[1],
          "L": b.codes.shape[1], "t_w": c.snp_local_window,
          "skip_batch_T": bs.x.shape[1], "kernels": nums}
         for b, bs, c, nums in ((batch, batch_s, cfg, main_nums),
-                               (batch_w, batch_sw, cfg_wide, wide_nums))]})
+                               (batch_w, batch_sw, cfg_wide, wide_nums))],
+        "short_rows": {"R": batch_sh.x.shape[0], "T": batch_sh.x.shape[1],
+                       "L": batch_sh.codes.shape[1], "kernels": short_nums},
+        "walks_past_256_slots": walks})
     if not small:
         assert batch.x.shape == batch_s.x.shape == (256, 11136), batch.x.shape
         assert batch.codes.shape == (256, 1024), batch.codes.shape
@@ -1046,8 +1187,10 @@ def main() -> int:
     del a_s, a_sw, batch_s, batch_sw, batch_w
 
     # ---- phase 4: the main path — the default configuration through the api
-    local_kernels = ("band_gather", "viterbi_fill", "backtrack", "path_counts",
-                     "shear_gather", "rescore_fill_tab")
+    # the band gather runs inside the fill, K4's gather and the glue inside
+    # the rescore: the standalone band_gather and shear_gather launch 0 times
+    local_kernels = ("band_gather_folded", "viterbi_fill", "backtrack", "path_counts",
+                     "rescore_local_tab")
     with tempfile.TemporaryDirectory() as tmp:
         fast5_dir = None
         if fast5mod.HAVE_H5PY:
@@ -1084,7 +1227,7 @@ def main() -> int:
     sync()
     bare_launches = read_launches()
     expect_launches("align without probabilities", bare_launches, {
-        k_: -(-len(bare) // batch_reads) for k_ in ("band_gather", "viterbi_fill",
+        k_: -(-len(bare) // batch_reads) for k_ in ("band_gather_folded", "viterbi_fill",
                                                      "backtrack")})
     for b, c in zip(bare, card_sub[1], strict=True):
         assert b.base_loglik is None and np.array_equal(b.seg_start, c.seg_start)
@@ -1098,13 +1241,33 @@ def main() -> int:
     fixed_launches = read_launches()
     n_sub = -(-len(f_alns) // batch_reads)
     expect_launches("fixed", fixed_launches, {k: 2 * n_sub for k in (
-        "band_gather", "viterbi_fill", "backtrack")})        # two entry points
+        "band_gather_folded", "viterbi_fill", "backtrack")})   # two entry points
     # float32 closed-form terms from statistics summed in float64
     assert_agree("fixed", (f_calls, f_alns),
                  run_api(reference, sub, None, cfg_fixed, model, "cpu", batch_reads)[:2],
                  ll_rtol=2e-3, ll_atol=5e-3)
     assert read_launches() == fixed_launches, "a CPU run must not launch a kernel"
     cpu_compare_s = time.perf_counter() - t0
+
+    # a band wider than 256 slots through the entry points, on one batch of
+    # reads, held against the CPU run of the same reads
+    t0 = time.perf_counter()
+    cfg_384 = nt.AlignConfig(band_width=384)
+    sub_384 = raws[:64]
+    reset_launches()
+    card_384 = run_api(reference, sub_384, None, cfg_384, model, "cuda", 64)[:2]
+    launches_384 = read_launches()
+    expect_launches("band 384", launches_384, {k_: 2 for k_ in local_kernels})
+    levels = {r.read_id: (r.mu, r.sigma) for r in records}
+    n_tied_384 = assert_agree(
+        "band 384", card_384, run_api(reference, sub_384, None, cfg_384, model, "cpu",
+                                      64)[:2], RESCORE_RTOL, RESCORE_ATOL, levels=levels)
+    assert n_tied_384 <= 0.05 * len(card_384[1]), n_tied_384
+    band_384 = {"reads": len(sub_384), "aligned": len(card_384[1]),
+                "calls": len(card_384[0]), "launches": launches_384,
+                "cpu_plain_reads_differing_by_ties_only": n_tied_384,
+                "seconds": time.perf_counter() - t0}
+    del card_384
 
     torch.cuda.reset_peak_memory_stats()
     batch, a, path, cnt, _, base_ll, split = stage_split(
@@ -1163,7 +1326,7 @@ def main() -> int:
                                   subst=None)
     k6_launches = read_launches()
     expect_launches("no tables", k6_launches, {k_: 1 for k_ in (
-        "band_gather", "viterbi_fill", "backtrack", "path_counts", "shear_gather",
+        "band_gather_folded", "viterbi_fill", "backtrack", "path_counts", "shear_gather",
         "rescore_fill")})
     assert torch.equal(no_tab["path"], path)
     torch.testing.assert_close(no_tab["base_loglik"][cmp], base_ll[cmp],
@@ -1187,6 +1350,7 @@ def main() -> int:
           "launches": launches, "stage_ms_one_batch": split,
           "device_ms_one_batch": sum(split[k] for k in DEVICE_STAGES),
           "launches_align_without_probabilities": bare_launches,
+          "band_width_384": band_384,
           "peak_device_mb_one_batch": peak_mb,
           "calls": len(calls), "planted": len(truth), "true_positive": tp,
           "recall": recall, "precision": tp / max(len(calls), 1),
@@ -1216,14 +1380,24 @@ def main() -> int:
     # each kernel's count comes from the path that runs it: the skip kernels
     # from the skip path, the two-sample fill from its own, K6 from the path
     # without genome tables, every other kernel from the main path
+    # K1b's count is that of the fills that gathered their own bands on the
+    # main path; its standalone launches come from the two-sample fill's path
     counts = dict(launches, rescore_fill=k6_launches["rescore_fill"],
+                  shear_gather=k6_launches["shear_gather"],
+                  band_gather=launches["band_gather_folded"],
                   viterbi_fill_pair=pair_out["launches"]["viterbi_fill_pair"],
                   **{k_: skip_out["launches"][k_]
                      for k_ in ("viterbi_fill_skip", "backtrack_skip")})
-    return finish(smi, main_nums, counts)
+    extra = {"band_gather": {"folded_into": "viterbi_fill, viterbi_fill_skip",
+                             "standalone_launches_dp_pair_step":
+                                 pair_out["launches"]["band_gather"]},
+             "shear_gather": {"launched_on": "local rescore without genome tables"},
+             "rescore_local_tab": {"instruction_floor_ms":
+                                   main_nums["rescore_local_tab"]["instruction_floor_ms"]}}
+    return finish(smi, main_nums, counts, extra)
 
 
-def finish(smi: str, nums: dict, launches: dict) -> int:
+def finish(smi: str, nums: dict, launches: dict, extra: dict) -> int:
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = dict(name=name, **info)
@@ -1232,6 +1406,7 @@ def finish(smi: str, nums: dict, launches: dict) -> int:
         k["ok"] = True        # a kernel that disagreed would have raised above
         k.update({f: nums[name][f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        k.update(extra.get(name, {}))
         kernels.append(k)
     assert len(kernels) == len(ALL_KERNELS) == 10
     print(smi, flush=True)

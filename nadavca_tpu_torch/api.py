@@ -162,7 +162,7 @@ def align_reads(
 ) -> List[ReadAlignment]:
     """Body of :func:`align_signal` over reads already in memory."""
     cfg = config or DEFAULT_CONFIG
-    check_supported(cfg)
+    check_supported(cfg, backend, device)
     model = model or default_model(cfg.k)
     records = _preprocess(raws, genome, model, cfg, workers, prep=prep)
     subst = _maybe_subst(genome, model, cfg, backend, device) \
@@ -265,7 +265,7 @@ def call_snps_reads(
 ) -> List[callmod.SnpCall]:
     """Body of :func:`call_snps` over reads already in memory."""
     cfg = config or DEFAULT_CONFIG
-    check_supported(cfg)
+    check_supported(cfg, backend, device)
     model = model or default_model(cfg.k)
     dev = torch.device(device)
     records, accs = _accumulate_reads(genome, raws, cfg, model, backend,

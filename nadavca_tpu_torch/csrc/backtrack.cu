@@ -36,18 +36,22 @@
 // all B entries of every row (T * B steps per read, 5 instructions for a
 // 32-bit register of 4 or 2 codes).
 //
-//   Segments. A block of 512 threads walks one read, S word rows at a time
+//   Segments. A block of 512 threads (256 above B = 256, where a lane's
+//   words, codes and shuffled neighbours of pass 1 need up to 112 registers
+//   with two planes) walks one read, S word rows at a time
 //   from the top; the S rows' words (B int32 per row and plane, one coalesced
 //   line each) and their lo / delta are staged into shared memory by
 //   cp.async, the next segment's copies in flight while this one is worked
 //   on (two buffers). S is sized to ~96 KB of shared memory per block, so
-//   two blocks share an SM.
+//   two blocks share an SM (at B = 1024 with two planes a row takes 18.6 KB:
+//   S = 5).
 //   1. Row maps, in parallel. One warp per word row composes the row's 32
 //      steps for every entry slot at once: after step s, h_s(e) = h_{s-1}(e)
 //      if the bit at (s, e) is 0, else h_{s-1}(e - adv), where e - adv < 0
 //      is "dead there" (s >= 1) or the raw value (s = 0, which a delta may
-//      bring back). Lane l holds entries l + 32m packed as 8- or 16-bit codes
-//      (value + 4: 0, 1 dead at -2, -1; 2, 3 raw -2, -1; 4 + j). The row's
+//      bring back). Lane l holds entries l + 32m packed as 8-bit codes, or
+//      16-bit ones from B = 256 on (value + 4: 0, 1 dead at -2, -1; 2, 3 raw
+//      -2, -1; 4 + j), B / 32 codes in B / 128 or B / 64 registers. The row's
 //      bits are transposed once (prmt) so that a step's select mask is one
 //      shift and one sign-replicating prmt, off the chain; the chain of a
 //      step is one register shuffle, a funnel shift (lane 0 takes lane 31's
@@ -77,12 +81,20 @@
 
 namespace {
 
-constexpr int WALK_THREADS = 512;
 constexpr size_t WALK_SMEM_TARGET = 96 * 1024;
 constexpr int CODE_OFFSET = 4;
+// most band slots the walk takes: 32 word columns of a lane (the fill's limit)
+constexpr int MAX_NM = 32;
+
+// threads of a read's block: 16 warps up to B = 256, 8 above, so that the
+// compiler may give pass 1 up to 255 registers a thread (one block per SM
+// is all the launch bound asks for)
+template <int NM>
+constexpr int walk_threads() { return NM <= 8 ? 512 : 256; }
 
 template <int NM, bool TWO>
 struct Walk {
+    static_assert(NM >= 1 && NM <= MAX_NM, "B is 32 .. 1024 in steps of 32");
     static constexpr int B = NM * 32;
     static constexpr int P = TWO ? 2 : 1;
     static constexpr int EB = (B + CODE_OFFSET <= 256) ? 8 : 16;   // bits per code
@@ -372,7 +384,7 @@ __device__ __forceinline__ void walk_body(const int* __restrict__ dec,
 }
 
 template <int NM>
-__global__ void __launch_bounds__(WALK_THREADS)
+__global__ void __launch_bounds__(walk_threads<NM>(), 1)
 backtrack_kernel(const int* __restrict__ dec, const int* __restrict__ lo,
                  const int* __restrict__ delta, const int* __restrict__ j_end,
                  const int* __restrict__ t_len, int* __restrict__ path,
@@ -382,7 +394,7 @@ backtrack_kernel(const int* __restrict__ dec, const int* __restrict__ lo,
 }
 
 template <int NM>
-__global__ void __launch_bounds__(WALK_THREADS)
+__global__ void __launch_bounds__(walk_threads<NM>(), 1)
 backtrack_skip_kernel(const int* __restrict__ dec, const int* __restrict__ dec2,
                       const int* __restrict__ lo, const int* __restrict__ delta,
                       const int* __restrict__ j_end, const int* __restrict__ t_len,
@@ -410,10 +422,10 @@ int launch_walk(const int* dec, const int* dec2, const int* lo, const int* delta
         attr_set = true;
     }
     if (TWO)
-        backtrack_skip_kernel<NM><<<R, WALK_THREADS, bytes, stream>>>(
+        backtrack_skip_kernel<NM><<<R, walk_threads<NM>(), bytes, stream>>>(
             dec, dec2, lo, delta, j_end, t_len, path, cnt, R, T, C, n_lanes, S);
     else
-        backtrack_kernel<NM><<<R, WALK_THREADS, bytes, stream>>>(
+        backtrack_kernel<NM><<<R, walk_threads<NM>(), bytes, stream>>>(
             dec, lo, delta, j_end, t_len, path, cnt, R, T, C, n_lanes, S);
     return (int)cudaGetLastError();
 }
@@ -423,7 +435,7 @@ int dispatch_walk(const int* dec, const int* dec2, const int* lo, const int* del
                   const int* j_end, const int* t_len, int* path, int* cnt, int R, int T,
                   int C, int B, int n_lanes, void* stream) {
     if (R == 0) return 0;
-    if ((C & 31) || C <= 0 || T % C || (B & 31) || B < 32 || B > 256)
+    if ((C & 31) || C <= 0 || T % C || (B & 31) || B < 32 || B > 32 * MAX_NM)
         return (int)cudaErrorInvalidValue;
     if (cnt && (n_lanes < 1 || !t_len)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
@@ -433,6 +445,12 @@ int dispatch_walk(const int* dec, const int* dec2, const int* lo, const int* del
     switch (B >> 5) {
         NADAVCA_WALK_CASE(1) NADAVCA_WALK_CASE(2) NADAVCA_WALK_CASE(3) NADAVCA_WALK_CASE(4)
         NADAVCA_WALK_CASE(5) NADAVCA_WALK_CASE(6) NADAVCA_WALK_CASE(7) NADAVCA_WALK_CASE(8)
+        NADAVCA_WALK_CASE(9) NADAVCA_WALK_CASE(10) NADAVCA_WALK_CASE(11) NADAVCA_WALK_CASE(12)
+        NADAVCA_WALK_CASE(13) NADAVCA_WALK_CASE(14) NADAVCA_WALK_CASE(15) NADAVCA_WALK_CASE(16)
+        NADAVCA_WALK_CASE(17) NADAVCA_WALK_CASE(18) NADAVCA_WALK_CASE(19) NADAVCA_WALK_CASE(20)
+        NADAVCA_WALK_CASE(21) NADAVCA_WALK_CASE(22) NADAVCA_WALK_CASE(23) NADAVCA_WALK_CASE(24)
+        NADAVCA_WALK_CASE(25) NADAVCA_WALK_CASE(26) NADAVCA_WALK_CASE(27) NADAVCA_WALK_CASE(28)
+        NADAVCA_WALK_CASE(29) NADAVCA_WALK_CASE(30) NADAVCA_WALK_CASE(31) NADAVCA_WALK_CASE(32)
     }
 #undef NADAVCA_WALK_CASE
     return (int)cudaErrorInvalidValue;

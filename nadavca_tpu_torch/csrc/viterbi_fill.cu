@@ -27,7 +27,7 @@
 // default log_p_skip are both the finite -1e30; their sums stay finite in
 // float32 because nothing clamps them, so the operation order is the TPU's.
 //
-// Bound on this card. The bytes (x once, the band levels once, R*T*B/8 bytes
+// Bound on this card. The bytes (x once, the level rows once, R*T*B/8 bytes
 // of decision words per plane) and the operations (8 per cell, 15 with skip)
 // are far below what the card does in the time of one read's chain: the
 // recurrence is a serial chain of t_len.max() samples per read, and one
@@ -66,6 +66,16 @@
 // buffers. They hand over through two counters in shared memory (halves
 // made, halves used; st.release / ld.acquire), never a block barrier: the
 // producer runs up to two half-groups ahead.
+//
+// The producer also gathers the chunk's band levels itself, a chunk ahead,
+// from the read's (R, N) rows of expected levels: mu[lo_c + j] and
+// sigma[lo_c + j], 0 and 1 where the position leaves [0, N). That is the
+// TPU's band gather (nadavca_tpu/ops/pallas_dp.py:520, _band_gather_kernel,
+// launched by band_gather_pallas :558), folded in: on this card it was a
+// launch of its own that wrote the chunk-major bands (22.8 MB at the main
+// shape) for the producers to read back once. The loads are the same in
+// number, contiguous in j, and the values the same floats, so nothing
+// rounds differently. (The two-sample fill still takes gathered bands.)
 //
 // Bands wider than one warp (W > 1). Slot j needs j-1 and j-2 only, never
 // j+1, so a chain warp depends on the warp to its left and on no other. The
@@ -296,31 +306,45 @@ __device__ __forceinline__ void group_sample(Chain<SKIP, S>& q, const float (&em
     sample<SKIP, S>(q, emit, left1, left2, 1u << s, log_p_stay, p1, p2);
 }
 
+// The band levels of the lane's slots in one chunk, from the read's rows of
+// the expected levels: mu[lo_c + j0 + k], sigma likewise, and the pad values
+// 0 and 1 where the position leaves [0, N) (the gather of the TPU's band
+// gather kernel, made here: lo_c is arbitrary, so these loads are scalar;
+// they come once per chunk, a chunk ahead, off the chain's path).
+template <int S>
+__device__ __forceinline__ void load_band(const float* __restrict__ mu_r,
+                                          const float* __restrict__ sg_r, int p0, int N,
+                                          float (&mu)[S], float (&sg)[S]) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        const int p = p0 + k;
+        const bool in = p >= 0 && p < N;
+        mu[k] = in ? mu_r[p] : 0.0f;
+        sg[k] = in ? sg_r[p] : 1.0f;
+    }
+}
+
 // The producer warp of one chain warp: the emissions of the same slots for
 // every live sample, HALF samples at a time into the buffer (h & 1) of the
 // table, h the read's half-group counter. made / used count the halves
-// written and read.
+// written and read. mu_r, sg_r: the read's rows of N expected levels.
 template <bool SKIP, int S>
 __device__ __forceinline__ void produce(const float* __restrict__ xr,
-                                        const float* __restrict__ mu_b,
-                                        const float* __restrict__ sg_b,
-                                        const int* __restrict__ lo_r, int R, int T, int C,
-                                        int B, int r, int j0, int lane, int tl, int nr,
+                                        const float* __restrict__ mu_r,
+                                        const float* __restrict__ sg_r,
+                                        const int* __restrict__ lo_r, int T, int C, int N,
+                                        int j0, int lane, int tl, int nr,
                                         float log_p_stay, float* tab, int* made,
                                         const int* used) {
     constexpr int ROW = 32 * S;
     const int n_chunks = T / C;
-    const size_t band0 = (size_t)r * B + j0;
     float mu_n[S], sg_n[S];
 #pragma unroll
     for (int k = 0; k < S; ++k) {
         mu_n[k] = 0.0f;
         sg_n[k] = 1.0f;
     }
-    if (tl > 0) {
-        load_slots<S>(mu_b + band0, mu_n);
-        load_slots<S>(sg_b + band0, sg_n);
-    }
+    if (tl > 0) load_band<S>(mu_r, sg_r, lo_r[0] + j0, N, mu_n, sg_n);
     float xg_n = tl > 0 ? xr[lane] : 0.0f;
     for (int c = 0; c < n_chunks; ++c) {
         const int t0 = c * C;
@@ -344,11 +368,7 @@ __device__ __forceinline__ void produce(const float* __restrict__ xr,
                 q.c[k] = (em_const - (mu * mu) * inv2v) + log_p_stay;
             }
         }
-        if (t0 + C < tl) {
-            const size_t bn = (size_t)(c + 1) * R * B + band0;
-            load_slots<S>(mu_b + bn, mu_n);
-            load_slots<S>(sg_b + bn, sg_n);
-        }
+        if (t0 + C < tl) load_band<S>(mu_r, sg_r, lo_r[c + 1] + j0, N, mu_n, sg_n);
         const int n_groups = (n_act + 31) >> 5;
         for (int g = 0; g < n_groups; ++g) {
             const int G = c * (C >> 5) + g;
@@ -550,8 +570,8 @@ __device__ __forceinline__ void chain(const int* __restrict__ delta_r,
 template <bool SKIP, int S, bool MULTI>
 __device__ __forceinline__ void fill_body(const float* __restrict__ x,
                                           const int* __restrict__ t_len,
-                                          const float* __restrict__ mu_b,
-                                          const float* __restrict__ sg_b,
+                                          const float* __restrict__ mu,
+                                          const float* __restrict__ sigma,
                                           const int* __restrict__ lo,
                                           const int* __restrict__ delta,
                                           const int* __restrict__ n_ref,
@@ -559,7 +579,7 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
                                           int* __restrict__ dec2,
                                           float* __restrict__ v_out,
                                           float* __restrict__ acc_out,
-                                          int R, int T, int C, int B,
+                                          int R, int T, int C, int B, int N,
                                           float log_p_stay, float p1, float p2) {
     constexpr int PLANES = SKIP ? 2 : 1;
     constexpr int ROW = 32 * S;
@@ -590,8 +610,9 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
     }
     __syncthreads();
     if (wid >= W) {
-        produce<SKIP, S>(x + (size_t)r * T, mu_b, sg_b, lo + (size_t)r * n_chunks, R, T, C,
-                         B, r, j0, lane, tl, n_ref[r], log_p_stay, tab, made + w, used + w);
+        produce<SKIP, S>(x + (size_t)r * T, mu + (size_t)r * N, sigma + (size_t)r * N,
+                         lo + (size_t)r * n_chunks, T, C, N, j0, lane, tl, n_ref[r],
+                         log_p_stay, tab, made + w, used + w);
         return;
     }
     chain<SKIP, S, MULTI>(delta + (size_t)r * n_chunks, dec, dec2, v_out, acc_out, R, T, C,
@@ -602,26 +623,26 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
 template <int S, bool MULTI>
 __global__ void __launch_bounds__(64 * MAX_WARPS, 1)
 viterbi_fill_kernel(const float* __restrict__ x, const int* __restrict__ t_len,
-                    const float* __restrict__ mu_b, const float* __restrict__ sg_b,
+                    const float* __restrict__ mu, const float* __restrict__ sigma,
                     const int* __restrict__ lo, const int* __restrict__ delta,
                     const int* __restrict__ n_ref, int* __restrict__ dec,
                     float* __restrict__ v_out, float* __restrict__ acc_out,
-                    int R, int T, int C, int B, float log_p_stay, float dcs) {
-    fill_body<false, S, MULTI>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, nullptr,
-                               v_out, acc_out, R, T, C, B, log_p_stay, dcs, 0.0f);
+                    int R, int T, int C, int B, int N, float log_p_stay, float dcs) {
+    fill_body<false, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, nullptr,
+                               v_out, acc_out, R, T, C, B, N, log_p_stay, dcs, 0.0f);
 }
 
 template <int S, bool MULTI>
 __global__ void __launch_bounds__(64 * MAX_WARPS, 1)
 viterbi_fill_skip_kernel(const float* __restrict__ x, const int* __restrict__ t_len,
-                         const float* __restrict__ mu_b, const float* __restrict__ sg_b,
+                         const float* __restrict__ mu, const float* __restrict__ sigma,
                          const int* __restrict__ lo, const int* __restrict__ delta,
                          const int* __restrict__ n_ref, int* __restrict__ dec,
                          int* __restrict__ dec2, float* __restrict__ v_out,
-                         float* __restrict__ acc_out, int R, int T, int C, int B,
+                         float* __restrict__ acc_out, int R, int T, int C, int B, int N,
                          float log_p_stay, float log_p_move, float log_p_skip) {
-    fill_body<true, S, MULTI>(x, t_len, mu_b, sg_b, lo, delta, n_ref, dec, dec2, v_out,
-                              acc_out, R, T, C, B, log_p_stay, log_p_move, log_p_skip);
+    fill_body<true, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, dec2, v_out,
+                              acc_out, R, T, C, B, N, log_p_stay, log_p_move, log_p_skip);
 }
 
 // The fixed (S, W) table: S slots per lane, W = B / (32 * S) chain warps.
@@ -650,32 +671,32 @@ cudaError_t allow_shmem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes);
 }
-#define NADAVCA_FILL_ARGS x, t_len, mu_b, sg_b, lo, delta, n_ref
+#define NADAVCA_FILL_ARGS x, t_len, mu, sigma, lo, delta, n_ref
 
 template <int S>
-int launch_fill(const float* x, const int* t_len, const float* mu_b, const float* sg_b,
+int launch_fill(const float* x, const int* t_len, const float* mu, const float* sigma,
                 const int* lo, const int* delta, const int* n_ref, int* dec,
-                float* v_out, float* acc_out, int R, int T, int C, int B,
+                float* v_out, float* acc_out, int R, int T, int C, int B, int N,
                 float log_p_stay, float dcs, cudaStream_t stream) {
     const int W = B / (32 * S);
     const size_t shmem = fill_shmem(B, W, false);
     if (W > 1) {
         if (cudaError_t e = allow_shmem(viterbi_fill_kernel<S, true>, shmem)) return (int)e;
         viterbi_fill_kernel<S, true><<<R, 64 * W, shmem, stream>>>(
-            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, log_p_stay, dcs);
+            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N, log_p_stay, dcs);
     } else {
         if (cudaError_t e = allow_shmem(viterbi_fill_kernel<S, false>, shmem)) return (int)e;
         viterbi_fill_kernel<S, false><<<R, 64, shmem, stream>>>(
-            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, log_p_stay, dcs);
+            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N, log_p_stay, dcs);
     }
     return (int)cudaGetLastError();
 }
 
 template <int S>
-int launch_fill_skip(const float* x, const int* t_len, const float* mu_b,
-                     const float* sg_b, const int* lo, const int* delta,
+int launch_fill_skip(const float* x, const int* t_len, const float* mu,
+                     const float* sigma, const int* lo, const int* delta,
                      const int* n_ref, int* dec, int* dec2, float* v_out,
-                     float* acc_out, int R, int T, int C, int B, float log_p_stay,
+                     float* acc_out, int R, int T, int C, int B, int N, float log_p_stay,
                      float log_p_move, float log_p_skip, cudaStream_t stream) {
     const int W = B / (32 * S);
     const size_t shmem = fill_shmem(B, W, true);
@@ -683,13 +704,13 @@ int launch_fill_skip(const float* x, const int* t_len, const float* mu_b,
         if (cudaError_t e = allow_shmem(viterbi_fill_skip_kernel<S, true>, shmem))
             return (int)e;
         viterbi_fill_skip_kernel<S, true><<<R, 64 * W, shmem, stream>>>(
-            NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R, T, C, B, log_p_stay,
+            NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R, T, C, B, N, log_p_stay,
             log_p_move, log_p_skip);
     } else {
         if (cudaError_t e = allow_shmem(viterbi_fill_skip_kernel<S, false>, shmem))
             return (int)e;
         viterbi_fill_skip_kernel<S, false><<<R, 64, shmem, stream>>>(
-            NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R, T, C, B, log_p_stay,
+            NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R, T, C, B, N, log_p_stay,
             log_p_move, log_p_skip);
     }
     return (int)cudaGetLastError();
@@ -704,73 +725,75 @@ NADAVCA_EXPORT int nadavca_fill_slots_per_lane(int B, int skip) {
 }
 
 // The fill at an explicit S (2, 4 or 8 slots per lane, W = B / (32 * S) warps
-// of at most 8): the layouts the table chose between, for timing them.
+// of at most 8): the layouts the table chose between, for timing them. mu,
+// sigma: the (R, N) rows of expected levels, from which the producers gather
+// the band of each chunk.
 NADAVCA_EXPORT int nadavca_viterbi_fill_layout(const float* x, const int* t_len,
-                                               const float* mu_b, const float* sg_b,
+                                               const float* mu, const float* sigma,
                                                const int* lo, const int* delta,
                                                const int* n_ref, int* dec,
                                                float* v_out, float* acc_out,
-                                               int R, int T, int C, int B,
+                                               int R, int T, int C, int B, int N,
                                                float log_p_stay, float dcs, int S,
                                                void* stream) {
     if (R == 0) return 0;
-    if (!fill_shape_ok(C, B, T, S)) return (int)cudaErrorInvalidValue;
+    if (!fill_shape_ok(C, B, T, S) || N < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     switch (S) {
-    case 2: return launch_fill<2>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+    case 2: return launch_fill<2>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N,
                                   log_p_stay, dcs, st);
-    case 4: return launch_fill<4>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+    case 4: return launch_fill<4>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N,
                                   log_p_stay, dcs, st);
-    default: return launch_fill<8>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+    default: return launch_fill<8>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N,
                                    log_p_stay, dcs, st);
     }
 }
 
 NADAVCA_EXPORT int nadavca_viterbi_fill_skip_layout(const float* x, const int* t_len,
-                                                    const float* mu_b, const float* sg_b,
+                                                    const float* mu, const float* sigma,
                                                     const int* lo, const int* delta,
                                                     const int* n_ref, int* dec, int* dec2,
                                                     float* v_out, float* acc_out,
-                                                    int R, int T, int C, int B,
+                                                    int R, int T, int C, int B, int N,
                                                     float log_p_stay, float log_p_move,
                                                     float log_p_skip, int S,
                                                     void* stream) {
     if (R == 0) return 0;
-    if (!fill_shape_ok(C, B, T, S)) return (int)cudaErrorInvalidValue;
+    if (!fill_shape_ok(C, B, T, S) || N < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     switch (S) {
     case 2: return launch_fill_skip<2>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R,
-                                       T, C, B, log_p_stay, log_p_move, log_p_skip, st);
+                                       T, C, B, N, log_p_stay, log_p_move, log_p_skip, st);
     case 4: return launch_fill_skip<4>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R,
-                                       T, C, B, log_p_stay, log_p_move, log_p_skip, st);
+                                       T, C, B, N, log_p_stay, log_p_move, log_p_skip, st);
     default: return launch_fill_skip<8>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out,
-                                        R, T, C, B, log_p_stay, log_p_move, log_p_skip,
+                                        R, T, C, B, N, log_p_stay, log_p_move, log_p_skip,
                                         st);
     }
 }
 
 NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
-                                        const float* mu_b, const float* sg_b,
+                                        const float* mu, const float* sigma,
                                         const int* lo, const int* delta,
                                         const int* n_ref, int* dec,
                                         float* v_out, float* acc_out,
-                                        int R, int T, int C, int B,
+                                        int R, int T, int C, int B, int N,
                                         float log_p_stay, float dcs,
                                         void* stream) {
     return nadavca_viterbi_fill_layout(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C,
-                                       B, log_p_stay, dcs, slots_per_lane(B, false),
+                                       B, N, log_p_stay, dcs, slots_per_lane(B, false),
                                        stream);
 }
 
 NADAVCA_EXPORT int nadavca_viterbi_fill_skip(const float* x, const int* t_len,
-                                             const float* mu_b, const float* sg_b,
+                                             const float* mu, const float* sigma,
                                              const int* lo, const int* delta,
                                              const int* n_ref, int* dec, int* dec2,
                                              float* v_out, float* acc_out,
-                                             int R, int T, int C, int B,
+                                             int R, int T, int C, int B, int N,
                                              float log_p_stay, float log_p_move,
                                              float log_p_skip, void* stream) {
     return nadavca_viterbi_fill_skip_layout(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out,
-                                            R, T, C, B, log_p_stay, log_p_move,
+                                            R, T, C, B, N, log_p_stay, log_p_move,
                                             log_p_skip, slots_per_lane(B, true), stream);
 }

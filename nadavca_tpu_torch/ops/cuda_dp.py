@@ -5,9 +5,13 @@ variant of one that is a program of its own, has a hand-written CUDA kernel
 under ``csrc/`` and, beside its wrapper here, a plain PyTorch version with the
 same contract:
 
-  ``band_gather``        csrc/band_gather.cu        ``band_gather_plain``
-  ``viterbi_fill``       csrc/viterbi_fill.cu       ``viterbi_fill_plain``
-  ``viterbi_fill_skip``  csrc/viterbi_fill.cu       ``viterbi_fill_plain`` (``use_skip``)
+  ``band_gather``        csrc/band_gather.cu        ``band_gather_plain`` (and
+                                                    folded into the two fills
+                                                    below, counted in
+                                                    ``band_gather_folded``)
+  ``viterbi_fill``       csrc/viterbi_fill.cu       ``band_gather_plain`` +
+                                                    ``viterbi_fill_plain``
+  ``viterbi_fill_skip``  csrc/viterbi_fill.cu       the same (``use_skip``)
   ``viterbi_fill_pair``  csrc/viterbi_fill_pair.cu  ``viterbi_fill_pair_plain``
   ``backtrack``          csrc/backtrack.cu          ``backtrack_plain``
   ``backtrack_skip``     csrc/backtrack.cu          ``backtrack_plain`` (two planes)
@@ -31,6 +35,7 @@ j - 1; with the skip transition a second plane marks predecessor j - 2.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -41,6 +46,9 @@ from ..utils import kernel_build
 from .banded_dp import NEG_INF, ViterbiResult
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+# most band slots the fill and walk kernels take (32 word columns of a lane in
+# the walk, 8 chain warps of 4 slots a lane in the fill)
+MAX_BAND = 1024
 
 
 # ------------------------------------------------------------------ checking
@@ -49,7 +57,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -58,7 +66,19 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on ``device`` (a CUDA device), by
+    the call Triton's launcher makes too: a tenth of the host time of
+    ``torch.cuda.current_stream(device).cuda_stream``, which builds a Stream."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _on(device):
+    """The context a launch on ``device`` runs in: none when it is the current
+    device (entering one costs as much host time as a small kernel takes)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 # --------------------------------------------------------------- band gather
@@ -99,9 +119,8 @@ def band_gather(mu: torch.Tensor, sigma: torch.Tensor, lo: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"band_gather: unsupported device {dev}")
     lib = kernel_build.load_library()
-    mu_b = torch.empty((n_chunks, R, B), dtype=torch.float32, device=dev)
-    sg_b = torch.empty((n_chunks, R, B), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    mu_b, sg_b = torch.empty((2, n_chunks, R, B), dtype=torch.float32, device=dev)
+    with _on(dev):
         code = lib.nadavca_band_gather(
             mu.data_ptr(), sigma.data_ptr(), lo.data_ptr(),
             mu_b.data_ptr(), sg_b.data_ptr(), R, N, n_chunks, B, _stream(dev))
@@ -111,6 +130,20 @@ def band_gather(mu: torch.Tensor, sigma: torch.Tensor, lo: torch.Tensor,
 
 
 band_gather.launches = 0
+
+
+class _Epilogue:
+    """The launch count of work that runs inside another kernel's launch."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# the band gather done by the producer warps of the single-step fills (K1b of
+# the TPU package, folded into K1 / K7a): one count per fill that gathered its
+# own band levels. The standalone ``band_gather`` counts only its own launches.
+band_gather_folded = _Epilogue("band_gather_folded")
 
 
 # ---------------------------------------------------------------------- fill
@@ -319,8 +352,10 @@ def fill_layout(band_width: int, use_skip: bool = False) -> Tuple[int, int]:
     return S, band_width // (32 * S)
 
 
-def _fill_prologue(name, x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg):
-    """Argument checks shared by the three fill wrappers. Returns (R, T, C, B)."""
+def _fill_prologue(name, x, t_len, mu, sigma, lo, delta, n_ref, cfg, bands=False):
+    """Argument checks shared by the three fill wrappers: the level rows mu,
+    sigma (R, N), or with ``bands`` the gathered (n_chunks, R, B) band levels.
+    Returns (R, T, C, B)."""
     _check_fill_cfg(cfg)
     dev = x.device
     if x.dim() != 2:
@@ -333,15 +368,21 @@ def _fill_prologue(name, x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg):
     _check("x", x, torch.float32, (R, T), dev)
     _check("t_len", t_len, torch.int32, (R,), dev)
     _check("n_ref", n_ref, torch.int32, (R,), dev)
-    _check("mu_band", mu_band, torch.float32, (n_chunks, R, B), dev)
-    _check("sigma_band", sigma_band, torch.float32, (n_chunks, R, B), dev)
+    if bands:
+        _check("mu_band", mu, torch.float32, (n_chunks, R, B), dev)
+        _check("sigma_band", sigma, torch.float32, (n_chunks, R, B), dev)
+    else:
+        if mu.dim() != 2 or mu.shape[1] < 1:
+            raise ValueError(f"mu: expected (R, N) with N >= 1, got {tuple(mu.shape)}")
+        _check("mu", mu, torch.float32, (R, mu.shape[1]), dev)
+        _check("sigma", sigma, torch.float32, (R, mu.shape[1]), dev)
     _check("lo", lo, torch.int32, (R, n_chunks), dev)
     _check("delta", delta, torch.int32, (R, n_chunks), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    if dev.type == "cuda" and B > 1024:
-        raise ValueError(f"band_width {B} exceeds 1024 slots, the most the fill "
-                         f"kernels take")
+    if dev.type == "cuda" and B > MAX_BAND:
+        raise ValueError(f"band_width {B} exceeds {MAX_BAND} slots, the most the "
+                         f"fill kernels take")
     return R, T, C, B
 
 
@@ -354,75 +395,75 @@ def _fill_outputs(R, T, B, dev, n_planes):
     return decs, v_out, acc
 
 
-def viterbi_fill(x: torch.Tensor, t_len: torch.Tensor, mu_band: torch.Tensor,
-                 sigma_band: torch.Tensor, lo: torch.Tensor,
+def viterbi_fill(x: torch.Tensor, t_len: torch.Tensor, mu: torch.Tensor,
+                 sigma: torch.Tensor, lo: torch.Tensor,
                  delta: torch.Tensor, n_ref: torch.Tensor, cfg: AlignConfig):
     """Banded Viterbi fill.
 
-    x (R, T) f32; t_len, n_ref (R,) i32; mu_band, sigma_band (n_chunks, R, B)
-    f32 from :func:`band_gather`; lo, delta (R, n_chunks) i32 with delta >= 0.
-    T must be a multiple of ``cfg.signal_chunk``, which must be a multiple of
-    32. Returns (decs, V (R, B) f32 the final renormalised band row, acc (R,)
-    f32 the renormalisation accumulator), where ``decs`` is a tuple of
-    (T/32, R, B) i32 planes of packed decision words: one plane without skip,
-    two with — the contract of ``viterbi_fill_pallas``.
+    x (R, T) f32; t_len, n_ref (R,) i32; mu, sigma (R, N) f32 the expected
+    levels of each read's window; lo, delta (R, n_chunks) i32 with lo >= 0
+    and delta >= 0. T must be a multiple of ``cfg.signal_chunk``, which must
+    be a multiple of 32. The kernel gathers each chunk's band levels from the
+    rows itself (the band gather folded into its producer warps, counted in
+    ``band_gather_folded``); on the CPU :func:`band_gather_plain` and
+    :func:`viterbi_fill_plain` run. Returns (decs, V (R, B) f32 the final
+    renormalised band row, acc (R,) f32 the renormalisation accumulator),
+    where ``decs`` is a tuple of (T/32, R, B) i32 planes of packed decision
+    words: one plane without skip, two with — the contract of
+    ``band_gather_pallas`` followed by ``viterbi_fill_pallas``.
 
     ``cfg.use_skip`` goes to :func:`viterbi_fill_skip`, ``cfg.dp_pair_step``
-    (without skip) to :func:`viterbi_fill_pair`; what is launched and counted
-    here is the single-step kernel without skip.
+    (without skip) to :func:`band_gather` and :func:`viterbi_fill_pair`; what
+    is launched and counted here is the single-step kernel without skip.
     """
-    args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
+    args = (x, t_len, mu, sigma, lo, delta, n_ref, cfg)
     if cfg.use_skip:
         return viterbi_fill_skip(*args)
     if cfg.dp_pair_step:
-        return viterbi_fill_pair(*args)
-    R, T, C, B = _fill_prologue("viterbi_fill", *args)
-    dev = x.device
-    if dev.type == "cpu":
-        return viterbi_fill_plain(*args)
-    lib = kernel_build.load_library()
-    decs, v_out, acc = _fill_outputs(R, T, B, dev, 1)
-    with torch.cuda.device(dev):
-        code = lib.nadavca_viterbi_fill(
-            x.data_ptr(), t_len.data_ptr(), mu_band.data_ptr(),
-            sigma_band.data_ptr(), lo.data_ptr(), delta.data_ptr(),
-            n_ref.data_ptr(), decs[0].data_ptr(), v_out.data_ptr(),
-            acc.data_ptr(), R, T, C, B, float(cfg.log_p_stay),
-            float(cfg.log_p_move - cfg.log_p_stay), _stream(dev))
-    kernel_build.check_launch(lib, code, "viterbi_fill")
-    viterbi_fill.launches += 1
-    return decs, v_out, acc
+        _fill_prologue("viterbi_fill", *args)
+        mu_b, sg_b = band_gather(mu, sigma, lo, cfg.band_width)
+        return viterbi_fill_pair(x, t_len, mu_b, sg_b, lo, delta, n_ref, cfg)
+    return _fill_rows("viterbi_fill", viterbi_fill, 1, *args)
 
 
 viterbi_fill.launches = 0
 
 
-def viterbi_fill_skip(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
-                      cfg: AlignConfig):
+def _fill_rows(name, wrapper, n_planes, x, t_len, mu, sigma, lo, delta, n_ref,
+               cfg: AlignConfig):
+    """The body of :func:`viterbi_fill` and :func:`viterbi_fill_skip`."""
+    R, T, C, B = _fill_prologue(name, x, t_len, mu, sigma, lo, delta, n_ref, cfg)
+    dev = x.device
+    if dev.type == "cpu":
+        mu_b, sg_b = band_gather_plain(mu, sigma, lo, B)
+        return viterbi_fill_plain(x, t_len, mu_b, sg_b, lo, delta, n_ref, cfg)
+    lib = kernel_build.load_library()
+    decs, v_out, acc = _fill_outputs(R, T, B, dev, n_planes)
+    if n_planes == 2:
+        consts = (float(cfg.log_p_stay), float(cfg.log_p_move), float(cfg.log_p_skip))
+    else:
+        consts = (float(cfg.log_p_stay), float(cfg.log_p_move - cfg.log_p_stay))
+    with _on(dev):
+        code = getattr(lib, "nadavca_" + name)(
+            x.data_ptr(), t_len.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
+            lo.data_ptr(), delta.data_ptr(), n_ref.data_ptr(),
+            *(d.data_ptr() for d in decs), v_out.data_ptr(), acc.data_ptr(),
+            R, T, C, B, mu.shape[1], *consts, _stream(dev))
+    kernel_build.check_launch(lib, code, name)
+    wrapper.launches += 1
+    band_gather_folded.launches += 1
+    return decs, v_out, acc
+
+
+def viterbi_fill_skip(x, t_len, mu, sigma, lo, delta, n_ref, cfg: AlignConfig):
     """The fill with the skip transition: a third candidate
     ``V[t-1, j-2] + log_p_skip`` and two decision planes (plane 0: advance 1,
     plane 1: advance 2). Arguments as :func:`viterbi_fill`; returns
     ((plane0, plane1), V, acc)."""
-    args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
     if not cfg.use_skip:
         raise ValueError("viterbi_fill_skip needs cfg.use_skip")
-    R, T, C, B = _fill_prologue("viterbi_fill_skip", *args)
-    dev = x.device
-    if dev.type == "cpu":
-        return viterbi_fill_plain(*args)
-    lib = kernel_build.load_library()
-    decs, v_out, acc = _fill_outputs(R, T, B, dev, 2)
-    with torch.cuda.device(dev):
-        code = lib.nadavca_viterbi_fill_skip(
-            x.data_ptr(), t_len.data_ptr(), mu_band.data_ptr(),
-            sigma_band.data_ptr(), lo.data_ptr(), delta.data_ptr(),
-            n_ref.data_ptr(), decs[0].data_ptr(), decs[1].data_ptr(),
-            v_out.data_ptr(), acc.data_ptr(), R, T, C, B,
-            float(cfg.log_p_stay), float(cfg.log_p_move),
-            float(cfg.log_p_skip), _stream(dev))
-    kernel_build.check_launch(lib, code, "viterbi_fill_skip")
-    viterbi_fill_skip.launches += 1
-    return decs, v_out, acc
+    return _fill_rows("viterbi_fill_skip", viterbi_fill_skip, 2, x, t_len, mu, sigma,
+                      lo, delta, n_ref, cfg)
 
 
 viterbi_fill_skip.launches = 0
@@ -430,21 +471,22 @@ viterbi_fill_skip.launches = 0
 
 def viterbi_fill_pair(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
                       cfg: AlignConfig):
-    """The fill without skip, two samples per serial step. Arguments and
-    outputs as :func:`viterbi_fill`: ((plane,), V, acc). Scores agree with the
-    single-step fill to float32 rounding; near-tie decisions can differ,
-    because the regrouped sums round differently."""
+    """The fill without skip, two samples per serial step, on gathered band
+    levels: mu_band, sigma_band (n_chunks, R, B) f32 from :func:`band_gather`,
+    the other arguments as :func:`viterbi_fill`; returns ((plane,), V, acc).
+    Scores agree with the single-step fill to float32 rounding; near-tie
+    decisions can differ, because the regrouped sums round differently."""
     args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
     if cfg.use_skip:
         raise ValueError("viterbi_fill_pair has no skip transition")
-    R, T, C, B = _fill_prologue("viterbi_fill_pair", *args)
+    R, T, C, B = _fill_prologue("viterbi_fill_pair", *args, bands=True)
     dev = x.device
     if dev.type == "cpu":
         return viterbi_fill_pair_plain(*args)
     lib = kernel_build.load_library()
     decs, v_out, acc = _fill_outputs(R, T, B, dev, 1)
     cs, cm = cfg.log_p_stay, cfg.log_p_move
-    with torch.cuda.device(dev):
+    with _on(dev):
         # the pair constants are summed in double and rounded to float32 once,
         # as the plain version's Python floats are
         code = lib.nadavca_viterbi_fill_pair(
@@ -509,14 +551,6 @@ def path_counts_plain(path, n_lanes: int, t_len):
                               right=False).to(torch.int32)
 
 
-class _Epilogue:
-    """The launch count of work that runs inside another kernel's launch."""
-
-    def __init__(self, name: str):
-        self.__name__ = name
-        self.launches = 0
-
-
 # the walk's counts epilogue (K3 of the TPU package): one launch per walk that
 # emitted counts
 path_counts = _Epilogue("path_counts")
@@ -550,9 +584,9 @@ def _backtrack_prologue(name, decs, n_planes, lo, delta, j_end, chunk_size,
             raise ValueError(f"n_lanes must be positive, got {n_lanes}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    if dev.type == "cuda" and (B % 32 != 0 or not 32 <= B <= 256):
-        raise ValueError(f"{name}: the kernel takes band widths 32..256 in steps "
-                         f"of 32, got {B}")
+    if dev.type == "cuda" and (B % 32 != 0 or not 32 <= B <= MAX_BAND):
+        raise ValueError(f"{name}: the kernel takes band widths 32..{MAX_BAND} in "
+                         f"steps of 32, got {B}")
     return R, T, C, B
 
 
@@ -571,7 +605,7 @@ def _walk(name, wrapper, n_planes, decs, lo, delta, j_end, chunk_size, t_len,
     cnt = torch.empty((R, int(n_lanes)), dtype=torch.int32, device=dev) if counts else None
     ptr = lambda t: t.data_ptr() if t is not None else None
     planes = tuple(d.data_ptr() for d in decs)
-    with torch.cuda.device(dev):
+    with _on(dev):
         code = getattr(lib, "nadavca_" + name)(
             *planes, lo.data_ptr(), delta.data_ptr(), j_end.data_ptr(), ptr(t_len),
             path.data_ptr(), ptr(cnt), R, T, C, B, int(n_lanes) if counts else 0,
@@ -598,7 +632,7 @@ def backtrack(decs, lo: torch.Tensor, delta: torch.Tensor, j_end: torch.Tensor,
     the counts of :func:`path_counts_plain` — the contract of
     ``path_counts_pallas`` — emitted by the same launch. Two planes go to
     :func:`backtrack_skip`; what is launched and counted here is the
-    one-plane walk. On CUDA tensors B is a multiple of 32 up to 256.
+    one-plane walk. On CUDA tensors B is a multiple of 32 up to 1024.
     """
     if isinstance(decs, (tuple, list)) and len(decs) == 2:
         return backtrack_skip(decs, lo, delta, j_end, chunk_size, t_len, n_lanes)
@@ -622,10 +656,13 @@ backtrack_skip.launches = 0
 
 KERNELS = (band_gather, viterbi_fill, backtrack, viterbi_fill_skip,
            viterbi_fill_pair, backtrack_skip, path_counts)
+# every launch count: the kernels', and that of the band gather folded into
+# the fills
+COUNTERS = KERNELS + (band_gather_folded,)
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in COUNTERS:
         k.launches = 0
 
 
@@ -645,9 +682,8 @@ def final_slot_and_score(v_fin, acc, lo_last, n_ref):
 
 
 def cuda_viterbi_batch(x, t_len, mu, sigma, n_ref, lo, delta, cfg: AlignConfig,
-                       with_path: bool = True, mu_band=None, sg_band=None,
-                       count_lanes: Optional[int] = None):
-    """Band gather → fill → score (→ backtrack), twin of
+                       with_path: bool = True, count_lanes: Optional[int] = None):
+    """Fill (with its band gather) → score (→ backtrack), twin of
     ``pallas_viterbi_batch``.
 
     Same contract as ``banded_dp.banded_viterbi_batch`` but taking chunked
@@ -656,10 +692,7 @@ def cuda_viterbi_batch(x, t_len, mu, sigma, n_ref, lo, delta, cfg: AlignConfig,
     With ``count_lanes`` the walk also emits the path's segment counts over
     that many lanes into ``ViterbiResult.counts``.
     """
-    if mu_band is None:
-        mu_band, sg_band = band_gather(mu, sigma, lo, cfg.band_width)
-    decs, v_fin, acc = viterbi_fill(x, t_len, mu_band, sg_band, lo, delta,
-                                   n_ref, cfg)
+    decs, v_fin, acc = viterbi_fill(x, t_len, mu, sigma, lo, delta, n_ref, cfg)
     j_end, score = final_slot_and_score(v_fin, acc, lo[:, -1], n_ref)
     if not with_path:
         return ViterbiResult(score=score, path=None, final_j=j_end), decs

@@ -4,9 +4,17 @@ Counterpart of ``nadavca_tpu/ops/pallas_rescore.py``. Each TPU kernel has a
 hand-written CUDA kernel under ``csrc/`` and, beside its wrapper here, a plain
 PyTorch version with the same contract:
 
-  ``shear_gather``      csrc/shear_gather.cu   plain: ``shear_gather_plain``
-  ``rescore_fill_tab``  csrc/rescore.cu        plain: ``rescore_fill_tab_plain``
-  ``rescore_fill``      csrc/rescore.cu        plain: ``rescore_fill_plain``
+  ``shear_gather``       csrc/shear_gather.cu   plain: ``shear_gather_plain``
+  ``rescore_local_tab``  csrc/rescore.cu        plain: ``rescore_local_tab_plain``
+  ``rescore_fill``       csrc/rescore.cu        plain: ``rescore_fill_plain``
+
+``rescore_local_tab`` is the TPU's tables rescore (K5) with the shear gather
+(K4) and the tensor code around them folded in: from the walk's counts to the
+masked (R, L, 4) result in one launch. Its plain version is the composition
+it replaces (``local_windows`` → ``span_ok`` → ``shear_gather_plain`` →
+``rescore_fill_tab_plain``, the plain version of the TPU's K5 on its own
+contract, → masks). ``shear_gather`` and ``rescore_fill`` serve the path
+without genome tables.
 
 As in ``ops/cuda_dp``: a wrapper checks its arguments, runs the plain version
 on CPU tensors, launches the kernel on CUDA tensors or raises, never falls
@@ -17,29 +25,30 @@ that makes the path (``ops/cuda_dp.backtrack`` with ``t_len`` and
 ``n_lanes``, ``csrc/backtrack.cu``); their plain version is
 ``cuda_dp.path_counts_plain``.
 
-``base_loglik_local_cuda`` strings them together: segment counts (from the
-walk) → per-position sample windows (K4) → the local DP per substitution (K5
-with genome tables, K6 with per-batch constants). What lies between the
-kernels is plain tensor code, as it is XLA code in the JAX package.
+``base_loglik_local_cuda`` strings them together: with genome tables one
+``rescore_local_tab``; without, segment counts (from the walk) → window
+bounds and per-batch constants (plain tensor code, as it is XLA code in the
+JAX package) → per-position sample windows (K4) → the local DP (K6).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..config import AlignConfig
 from ..utils import kernel_build
 from .banded_dp import NEG_INF
-from .cuda_dp import _check, _stream, path_counts_plain
+from .cuda_dp import _check, _on, _stream, path_counts_plain
 from .subst_tables import SubstTables
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 LT = 128      # positions per tile of the slab rule
 SPAN = 2048   # samples a tile's window starts may spread over (slab rule)
 MAX_K = 8     # k-mer lengths csrc/rescore.cu is instantiated for
+MAX_TW = 256  # longest window the fused rescore's staged samples hold
 
 
 def _round_up(v: int, m: int) -> int:
@@ -127,7 +136,7 @@ def shear_gather(x: torch.Tensor, S: torch.Tensor, t_w: int, span: int = SPAN,
     lib = kernel_build.load_library()
     base = shear_slab_base(S, T, span).contiguous() if slab else None
     xs = torch.empty((t_w, R, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         code = lib.nadavca_shear_gather(
             x.data_ptr(), S.data_ptr(), base.data_ptr() if slab else None,
             xs.data_ptr(), R, T, L, t_w, span, LT, _stream(dev))
@@ -185,14 +194,19 @@ def _rescore_plain(xs, em, mu, iv, w, kk, codes, k: int, cfg: AlignConfig, t_w: 
     return out - ref[None]
 
 
-def _check_tab(woff, tab, R: int, L: int, k: int, dev):
+def _check_tab(woff, tab, R: int, L: int, k: int, dev, woff_range=None):
+    """Check the table and the offsets into it. ``woff_range``: the smallest
+    and largest offset, where the caller has them on the host; else they are
+    read back from ``woff`` (one synchronisation with the card)."""
     if tab.dim() != 3 or tab.shape[0] != 3 or tab.shape[1] != 4 * k:
         raise ValueError(f"tab: expected (3, {4 * k}, rows_p), got {tuple(tab.shape)}")
     rows_p = tab.shape[2]
     _check("tab", tab, torch.float32, (3, 4 * k, rows_p), dev)
     _check("woff", woff, torch.int32, (R,), dev)
     if R:
-        lo, hi = int(woff.min()), int(woff.max())
+        if woff_range is None:
+            woff_range = torch.stack(torch.aminmax(woff)).tolist()
+        lo, hi = (int(v) for v in woff_range)
         # the kernel reads L columns from each offset and never clamps: a
         # clamped slice would be the wrong genome positions, silently
         if lo < 0 or hi + L > rows_p:
@@ -203,49 +217,20 @@ def _check_tab(woff, tab, R: int, L: int, k: int, dev):
 
 
 def rescore_fill_tab_plain(xs, w, kk, codes, woff, tab, cfg: AlignConfig, t_w: int):
-    """Plain version of :func:`rescore_fill_tab`."""
+    """The local DP with constants read from the genome table, on gathered
+    samples — the contract of ``rescore_fill_tab_pallas``: xs (t_w, R, L) f32
+    from :func:`shear_gather`; w, kk, codes (R, L) i32 (window length, live
+    slots, reference base 0..3); woff (R,) i32 table column of each read's
+    first window position; tab (3, k*4, rows_p) f32 the stacked [em, mu, iv]
+    of ``SubstTables``. Returns (4, R, L) f32 scores per base minus the
+    reference base's. Offsets that would leave the table raise. The card runs
+    this inside :func:`rescore_local_tab`."""
     k = cfg.k
     R, L, dev = _check_rescore(xs, w, kk, codes, t_w)
     _check_tab(woff, tab, R, L, k, dev)
     cols = woff.to(torch.int64)[:, None] + torch.arange(L, device=dev)[None, :]
     em, mu, iv = (tab[p][:, cols] for p in range(3))        # (k*4, R, L) each
     return _rescore_plain(xs, em, mu, iv, w, kk, codes, k, cfg, t_w)
-
-
-def rescore_fill_tab(xs: torch.Tensor, w: torch.Tensor, kk: torch.Tensor,
-                     codes: torch.Tensor, woff: torch.Tensor, tab: torch.Tensor,
-                     cfg: AlignConfig, t_w: int) -> torch.Tensor:
-    """The local DP with constants read from the genome table.
-
-    xs (t_w, R, L) f32 from :func:`shear_gather`; w, kk, codes (R, L) i32
-    (window length, live slots, reference base 0..3); woff (R,) i32 table
-    column of each read's first window position; tab (3, k*4, rows_p) f32 the
-    stacked [em, mu, iv] of ``SubstTables``. Returns (4, R, L) f32 scores per
-    base minus the reference base's — the contract of
-    ``rescore_fill_tab_pallas``. Offsets that would leave the table raise.
-    """
-    k = cfg.k
-    R, L, dev = _check_rescore(xs, w, kk, codes, t_w)
-    rows_p = _check_tab(woff, tab, R, L, k, dev)
-    if dev.type == "cpu":
-        return rescore_fill_tab_plain(xs, w, kk, codes, woff, tab, cfg, t_w)
-    if dev.type != "cuda":
-        raise ValueError(f"rescore_fill_tab: unsupported device {dev}")
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
-    lib = kernel_build.load_library()
-    out = torch.empty((4, R, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.nadavca_rescore_tab(
-            xs.data_ptr(), w.data_ptr(), kk.data_ptr(), codes.data_ptr(),
-            woff.data_ptr(), tab.data_ptr(), out.data_ptr(), R, L, t_w, k,
-            rows_p, float(cfg.log_p_stay), float(cfg.log_p_move), _stream(dev))
-    kernel_build.check_launch(lib, code, "rescore_fill_tab")
-    rescore_fill_tab.launches += 1
-    return out
-
-
-rescore_fill_tab.launches = 0
 
 
 def rescore_fill_plain(xs, em, mu, iv, w, kk, codes, cfg: AlignConfig, t_w: int):
@@ -258,7 +243,7 @@ def rescore_fill(xs: torch.Tensor, em: torch.Tensor, mu: torch.Tensor,
                  codes: torch.Tensor, cfg: AlignConfig, t_w: int) -> torch.Tensor:
     """The local DP with constants passed per batch.
 
-    As :func:`rescore_fill_tab`, with em, mu, iv (k*4, R, L) f32 (row
+    As :func:`rescore_fill_tab_plain`, with em, mu, iv (k*4, R, L) f32 (row
     ``j*4 + b`` is slot j, base b; ``em`` is NEG_INF at dead slots) in place
     of the table — the contract of ``rescore_fill_pallas``.
     """
@@ -274,7 +259,7 @@ def rescore_fill(xs: torch.Tensor, em: torch.Tensor, mu: torch.Tensor,
         raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
     lib = kernel_build.load_library()
     out = torch.empty((4, R, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         code = lib.nadavca_rescore(
             xs.data_ptr(), em.data_ptr(), mu.data_ptr(), iv.data_ptr(),
             w.data_ptr(), kk.data_ptr(), codes.data_ptr(), out.data_ptr(),
@@ -286,13 +271,6 @@ def rescore_fill(xs: torch.Tensor, em: torch.Tensor, mu: torch.Tensor,
 
 
 rescore_fill.launches = 0
-
-KERNELS = (shear_gather, rescore_fill_tab, rescore_fill)
-
-
-def reset_launches() -> None:
-    for kern in KERNELS:
-        kern.launches = 0
 
 
 # ---------------------------------------------------------- the local rescore
@@ -384,6 +362,126 @@ def batch_constants(p_lo, kk, window_codes, ids, level_mean, level_std, k: int):
     return to_kernel_layout(em), to_kernel_layout(mu_s), to_kernel_layout(iv), slots_ok
 
 
+def _window_xs(x, S, W, t_w: int, gather=shear_gather):
+    """The sample windows of the positions and the span mask: (xs (t_w, R, L),
+    W with the span-masked positions set to 0), by ``gather`` (the kernel's
+    wrapper, or its plain version). Where T >= 2048 + 256 the
+    samples are gathered under the slab rule, and a position whose window
+    start lies 2048 samples or more beyond its tile's aligned base gets W = 0;
+    below that T there is no mask and sample indices clamp to T - 1."""
+    T = x.shape[1]
+    S_c = S.clamp(0, T - 1).contiguous()
+    slab = T >= SPAN + 256
+    if slab:
+        W = torch.where(span_ok(S_c, T), W, torch.zeros_like(W))
+    return gather(x, S_c, t_w, span=SPAN, slab=slab), W.contiguous()
+
+
+def _check_local_tab(x, path, t_len, cnt, window_codes, woff, tab, valid, N, k, t_w,
+                     woff_range):
+    if x.dim() != 2 or window_codes.dim() != 2:
+        raise ValueError(f"x (R, T) and window_codes (R, L) expected, got "
+                         f"{tuple(x.shape)} and {tuple(window_codes.shape)}")
+    dev = x.device
+    R, T = x.shape
+    L = window_codes.shape[1]
+    if L % LT != 0:
+        raise ValueError(f"L={L} must be a multiple of {LT} (pad the window codes)")
+    if not 1 <= t_w <= MAX_TW:
+        raise ValueError(f"t_w={t_w} must lie in [1, {MAX_TW}]")
+    if N < 1 or T < 1:
+        raise ValueError(f"N={N} and T={T} must be positive")
+    _check("x", x, torch.float32, (R, T), dev)
+    _check("path", path, torch.int32, (R, T), dev)
+    _check("t_len", t_len, torch.int32, (R,), dev)
+    _check("window_codes", window_codes, torch.int32, (R, L), dev)
+    if cnt is not None:
+        _check("cnt", cnt, torch.int32, (R, count_lanes(N)), dev)
+    rows_p = _check_tab(woff, tab, R, L, k, dev, woff_range)
+    _check("valid", valid, torch.bool, (rows_p,), dev)
+    return R, T, L
+
+
+def rescore_local_tab_plain(x, path, t_len, cnt, window_codes, woff, tab, valid,
+                            N: int, cfg: AlignConfig, t_w: int):
+    """Plain version of :func:`rescore_local_tab`: the composition it
+    replaces."""
+    k = cfg.k
+    L = window_codes.shape[1]
+    S, W, kk, _, valid_i = local_windows(path, t_len, window_codes, N, k, t_w, cnt)
+    xs, W = _window_xs(x, S, W, t_w, gather=shear_gather_plain)
+    scores = rescore_fill_tab_plain(xs, W, kk, window_codes.clamp(0, 3), woff, tab,
+                                    cfg, t_w)                      # (4, R, L)
+    # read-local edge positions (clipped windows) are masked: kk == k required
+    cols = woff.to(torch.int64)[:, None] + torch.arange(L, device=x.device)
+    all_ok = valid_i & (kk == k) & valid[cols] & (W > 0)
+    out = scores.permute(1, 2, 0)                                  # (R, L, 4)
+    return torch.where(all_ok[:, :, None], out, torch.zeros_like(out)).contiguous()
+
+
+def rescore_local_tab(x: torch.Tensor, path: torch.Tensor, t_len: torch.Tensor,
+                      cnt: Optional[torch.Tensor], window_codes: torch.Tensor,
+                      woff: torch.Tensor, tab: torch.Tensor, valid: torch.Tensor,
+                      N: int, cfg: AlignConfig, t_w: int,
+                      woff_range: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The local rescore with genome tables, from the walk's counts to the
+    masked base log-likelihoods, in one launch.
+
+    x (R, T) f32; path (R, T) i32 and t_len (R,) i32 (the path's first and
+    last live positions are read from them); cnt (R, count_lanes(N)) i32 the
+    path's segment counts as the walk emits them (on CPU tensors None makes
+    the plain version count them); window_codes (R, L) i32 the window's bases,
+    4 past its end, L a multiple of 128; woff (R,) i32 the table column of
+    each read's position 0; tab (3, k*4, rows_p) f32 and valid (rows_p,) bool
+    of ``SubstTables``; N the window's k-mer count; t_w <= 256. Returns (R, L,
+    4) f32: per base, the local DP's score minus the reference base's, and 0
+    where the position is masked — not a real base, a window clipped by the
+    read's ends (kk < k), invalid in the genome, an empty window, or (from
+    T = 2304 on) a window start 2048 samples or more beyond its 128-position
+    tile's slab base. The tables branch of ``base_loglik_local_pallas``: the
+    TPU's K4 and K5 with the tensor code around them. Offsets that would leave
+    the table raise: ``woff_range``, the smallest and largest of ``woff``
+    where the caller has them on the host (the pipeline does), spares the
+    wrapper reading them back from the card.
+    """
+    k, t_w, N = cfg.k, int(t_w), int(N)
+    R, T, L = _check_local_tab(x, path, t_len, cnt, window_codes, woff, tab, valid,
+                               N, k, t_w, woff_range)
+    dev = x.device
+    if dev.type == "cpu":
+        return rescore_local_tab_plain(x, path, t_len, cnt, window_codes, woff, tab,
+                                       valid, N, cfg, t_w)
+    if dev.type != "cuda":
+        raise ValueError(f"rescore_local_tab: unsupported device {dev}")
+    if cnt is None:
+        raise ValueError("rescore_local_tab: on a CUDA device the segment counts "
+                         "come from the walk (cuda_dp.backtrack with t_len and "
+                         "n_lanes)")
+    if k > MAX_K:
+        raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
+    lib = kernel_build.load_library()
+    out = torch.empty((R, L, 4), dtype=torch.float32, device=dev)
+    with _on(dev):
+        code = lib.nadavca_rescore_local_tab(
+            x.data_ptr(), cnt.data_ptr(), path.data_ptr(), t_len.data_ptr(),
+            window_codes.data_ptr(), woff.data_ptr(), tab.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), R, T, L, N, cnt.shape[1], t_w, k,
+            tab.shape[2], float(cfg.log_p_stay), float(cfg.log_p_move), _stream(dev))
+    kernel_build.check_launch(lib, code, "rescore_local_tab")
+    rescore_local_tab.launches += 1
+    return out
+
+
+rescore_local_tab.launches = 0
+
+KERNELS = (shear_gather, rescore_local_tab, rescore_fill)
+
+
+def reset_launches() -> None:
+    for kern in KERNELS:
+        kern.launches = 0
+
+
 def base_loglik_local_cuda(
     x: torch.Tensor,             # (R, T) f32
     path: torch.Tensor,          # (R, T) i32
@@ -398,17 +496,22 @@ def base_loglik_local_cuda(
     tables: Optional[SubstTables] = None,
     window_off: Optional[torch.Tensor] = None,   # (R,) i32 table column per read
     cnt: Optional[torch.Tensor] = None,          # (R, count_lanes(N)) i32 from the walk
+    window_off_range: Optional[Tuple[int, int]] = None,   # window_off's min, max
 ) -> torch.Tensor:
     """(R, L, 4) base log-likelihoods — kernel version of
     ``banded_dp.base_loglik_local_batch``, twin of ``base_loglik_local_pallas``.
 
-    With ``tables`` the constants come from the genome tables (K5), and
-    positions whose window is clipped by the read's ends (``kk < k``) or
-    invalid in the genome are masked to exactly 0. Without, they are built per
-    batch (K6) and edge positions are scored like the ``scan`` twin's.
+    With ``tables`` the whole rescore is one :func:`rescore_local_tab`
+    (the TPU's K4 and K5 and the tensor code around them): positions whose
+    window is clipped by the read's ends (``kk < k``) or invalid in the genome
+    are masked to exactly 0. Without, the constants are built per batch (K6
+    on the samples K4 gathers) and edge positions are scored like the
+    ``scan`` twin's.
 
     ``cnt`` are the path's segment counts as the walk emitted them (see
-    :func:`local_windows`: required on CUDA tensors).
+    :func:`local_windows`: required on CUDA tensors). ``window_off_range``:
+    the smallest and largest window offset, where the caller has them on the
+    host (see :func:`rescore_local_tab`).
 
     The span mask: where T >= 2048 + 256 the sample windows are gathered
     under the slab rule, and a position whose window start lies 2048 samples
@@ -419,7 +522,6 @@ def base_loglik_local_cuda(
         raise ValueError(f"k={k} differs from cfg.k={cfg.k}")
     if (tables is None) != (window_off is None):
         raise ValueError("tables and window_off go together")
-    T = x.shape[1]
     L_in = window_codes.shape[1]
     N = ids.shape[1]
     # pad the position axis so that tiles of the slab rule are whole (padded
@@ -429,32 +531,19 @@ def base_loglik_local_cuda(
         window_codes = torch.nn.functional.pad(window_codes, (0, L - L_in), value=4)
     window_codes = window_codes.contiguous()
 
+    if tables is not None:
+        out = rescore_local_tab(x, path, t_len, cnt, window_codes,
+                                window_off.contiguous(), tables.tab, tables.valid, N,
+                                cfg, t_w, woff_range=window_off_range)
+        return out if L == L_in else out[:, :L_in, :].contiguous()
+
     S, W, kk, p_lo, valid_i = local_windows(path, t_len, window_codes, N, k, t_w,
                                             cnt)
-
-    # ---- xs: per-position sample windows
-    S_c = S.clamp(0, T - 1).contiguous()
-    slab = T >= SPAN + 256
-    if slab:
-        W = torch.where(span_ok(S_c, T), W, torch.zeros_like(W))
-    xs = shear_gather(x, S_c, t_w, span=SPAN, slab=slab)         # (t_w, R, L)
-
-    W = W.contiguous()
-    ref_clipped = window_codes.clamp(0, 3)
-    if tables is not None:
-        # only the validity row is sliced here; the kernel reads its table
-        # columns itself. Read-local edge positions (clipped windows) are
-        # masked: kk == k required.
-        cols = window_off.to(torch.int64)[:, None] + torch.arange(L, device=x.device)
-        scores = rescore_fill_tab(xs, W, kk, ref_clipped, window_off.contiguous(),
-                                  tables.tab, cfg, t_w)           # checks the offsets
-        valid_i = valid_i & (kk == k) & tables.valid[cols]
-        all_ok = valid_i & (W > 0)
-    else:
-        em, mu, iv, slots_ok = batch_constants(p_lo, kk, window_codes, ids,
-                                               level_mean, level_std, k)
-        scores = rescore_fill(xs, em, mu, iv, W, kk, ref_clipped, cfg, t_w)
-        all_ok = valid_i & (W > 0) & slots_ok
+    xs, W = _window_xs(x, S, W, t_w)                              # (t_w, R, L)
+    em, mu, iv, slots_ok = batch_constants(p_lo, kk, window_codes, ids,
+                                           level_mean, level_std, k)
+    scores = rescore_fill(xs, em, mu, iv, W, kk, window_codes.clamp(0, 3), cfg, t_w)
+    all_ok = valid_i & (W > 0) & slots_ok
     out = scores.permute(1, 2, 0)                                # (R, L, 4)
     out = torch.where(all_ok[:, :, None], out, torch.zeros_like(out))
     return out[:, :L_in, :].contiguous()

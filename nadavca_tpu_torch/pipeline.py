@@ -257,32 +257,40 @@ def path_to_segments(path: np.ndarray, t_len: int, n_ref: int):
     return np.where(visited, s, -1), np.where(visited, e, -1)
 
 
-def check_supported(cfg: AlignConfig) -> None:
-    """Raise for a configuration the device path cannot run."""
+def check_supported(cfg: AlignConfig, backend: str = "auto", device=None) -> None:
+    """Raise for a configuration the device path cannot run: before any
+    kernel launches, so that nothing fails half way through a batch. On a
+    CUDA device the kernel backend takes band widths up to
+    ``cuda_dp.MAX_BAND``."""
     if cfg.snp_rescore not in ("local", "fixed"):
         raise ValueError(f"unknown snp_rescore {cfg.snp_rescore!r}")
+    if (device is not None and torch.device(device).type == "cuda"
+            and resolve_backend(cfg, backend) == "cuda"
+            and cfg.band_width > cuda_dp.MAX_BAND):
+        raise ValueError(f"band_width {cfg.band_width} exceeds {cuda_dp.MAX_BAND} "
+                         f"slots, the most the CUDA kernels take")
 
 
 def device_compute(
-    x, t_len, mu, sigma, n_ref, lo, delta, mu_b, sg_b, codes, ids, lm, ls,
+    x, t_len, mu, sigma, n_ref, lo, delta, codes, ids, lm, ls,
     woff, subst,
-    cfg: AlignConfig, backend: str, k: int, rescore: bool = True,
+    cfg: AlignConfig, backend: str, k: int, rescore: bool = True, woff_range=None,
 ):
     """The per-device compute body: banded Viterbi, then the rescore.
 
     lo/delta are always chunked (R, n_chunks); the scan backend expands them
     here. ``woff`` (R,) i32 and ``subst`` (the genome's ``SubstTables``) are
-    None off the tables path. Under backend ``"cuda"`` with the local rescore
+    None off the tables path; ``woff_range`` the smallest and largest offset,
+    from the host. Under backend ``"cuda"`` with the local rescore
     the walk also emits the path's segment counts, which the rescore takes.
     Returns (score (R,), path (R, T) i32, base_ll (R, L, 4), or None when
     ``rescore`` is False).
     """
-    check_supported(cfg)
+    check_supported(cfg, backend, x.device)
     local = rescore and cfg.snp_rescore == "local"
     if backend == "cuda":
         res, _ = cuda_dp.cuda_viterbi_batch(
             x, t_len, mu, sigma, n_ref, lo, delta, cfg,
-            mu_band=mu_b, sg_band=sg_b,
             count_lanes=cuda_rescore.count_lanes(ids.shape[1]) if local else None)
     elif backend == "scan":
         T = x.shape[1]
@@ -298,7 +306,7 @@ def device_compute(
             base_ll = cuda_rescore.base_loglik_local_cuda(
                 x, res.path, t_len, codes, ids, lm, ls, k, cfg,
                 t_w=cfg.snp_local_window, tables=subst, window_off=woff,
-                cnt=res.counts)
+                cnt=res.counts, window_off_range=woff_range)
         else:
             base_ll = banded_dp.base_loglik_local_batch(
                 x, res.path, t_len, codes, ids, lm, ls, k, cfg,
@@ -323,8 +331,9 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
                 backend: str, device="cuda", subst=None) -> dict:
     """Put everything ``device_compute`` consumes on ``device``.
 
-    Band levels are sliced on the device (``cuda_dp.band_gather``), so the
-    (n_chunks, R, B) band arrays never cross the host-device link. ``subst``
+    Band levels are sliced on the device (by the fill's producer warps, or
+    ``cuda_dp.band_gather`` for the two-sample fill), so no (n_chunks, R, B)
+    band array crosses the host-device link. ``subst``
     (``ops.subst_tables.SubstTables`` of the genome, already on ``device``) is
     used by the kernel backend's local rescore only; the per-read table
     offsets are computed here and checked against the table's tail pad.
@@ -335,22 +344,24 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    woff = None
+    woff = woff_range = None
     if subst is not None and backend == "cuda" and cfg.snp_rescore == "local":
-        woff = put(subst.window_offsets(
+        off = subst.window_offsets(
             batch.contigs, batch.window_start, batch.window_len, batch.strand,
-            padded_len=batch.codes.shape[1]))
+            padded_len=batch.codes.shape[1])
+        woff = put(off)
+        woff_range = (int(off.min()), int(off.max())) if len(off) else None
     else:
         subst = None
     return dict(
         x=put(batch.x), t_len=put(batch.t_len),
         mu=put(batch.mu), sigma=put(batch.sigma),
         n_ref=put(batch.n_ref), lo=put(batch.bands.lo),
-        delta=put(batch.bands.delta), mu_b=None, sg_b=None,
+        delta=put(batch.bands.delta),
         codes=put(batch.codes), ids=put(batch.ids),
         lm=put(model.level_mean.astype(np.float32)),
         ls=put(model.level_std.astype(np.float32)),
-        woff=woff, subst=subst,
+        woff=woff, woff_range=woff_range, subst=subst,
         backend=backend, k=model.k,
     )
 
@@ -377,9 +388,9 @@ def align_batch(
         batch, model, cfg, backend, device=device, subst=subst)
     score, path, base_ll = device_compute(
         a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"],
-        a["delta"], a["mu_b"], a["sg_b"], a["codes"], a["ids"], a["lm"],
+        a["delta"], a["codes"], a["ids"], a["lm"],
         a["ls"], a["woff"], a["subst"], cfg=cfg, backend=a["backend"], k=a["k"],
-        rescore=rescore,
+        rescore=rescore, woff_range=a.get("woff_range"),
     )
     return {
         "score": score,

@@ -2,8 +2,9 @@
 
 Twin in role of ``nadavca_tpu/utils/native_build.py``. The sources have a
 plain C interface and include nothing of PyTorch, so ``nvcc`` compiles each in
-seconds; every source is compiled to an object by its own ``nvcc`` process, all
-started together, and one link step makes ``libnadavca_kernels.so``, which is
+seconds (the walk's, with its 64 instantiations for bands up to 1024 slots, in
+about a minute); every source is compiled to an object by its own ``nvcc``
+process, all started together, and one link step makes ``libnadavca_kernels.so``, which is
 loaded with ``ctypes``. The output lives in ``nadavca_tpu_torch/_build/<hash>/``
 keyed by a hash of the sources and the flags, is built at first use and never
 committed. A failed build raises with the compiler's output; nothing falls
@@ -125,16 +126,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nadavca_band_gather.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.nadavca_band_gather.restype = i
     lib.nadavca_viterbi_fill.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, f, f, p]
+                                         i, i, i, i, i, f, f, p]
     lib.nadavca_viterbi_fill.restype = i
     lib.nadavca_viterbi_fill_skip.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, f, f, f, p]
+                                              i, i, i, i, i, f, f, f, p]
     lib.nadavca_viterbi_fill_skip.restype = i
     lib.nadavca_viterbi_fill_layout.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                                i, i, i, i, f, f, i, p]
+                                                i, i, i, i, i, f, f, i, p]
     lib.nadavca_viterbi_fill_layout.restype = i
     lib.nadavca_viterbi_fill_skip_layout.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                                     i, i, i, i, f, f, f, i, p]
+                                                     i, i, i, i, i, f, f, f, i, p]
     lib.nadavca_viterbi_fill_skip_layout.restype = i
     lib.nadavca_fill_slots_per_lane.argtypes = [i, i]
     lib.nadavca_fill_slots_per_lane.restype = i
@@ -147,9 +148,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nadavca_backtrack_skip.restype = i
     lib.nadavca_shear_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.nadavca_shear_gather.restype = i
-    lib.nadavca_rescore_tab.argtypes = [p, p, p, p, p, p, p,
-                                        i, i, i, i, i, f, f, p]
-    lib.nadavca_rescore_tab.restype = i
+    lib.nadavca_rescore_local_tab.argtypes = [p, p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, i, i, i, f, f, p]
+    lib.nadavca_rescore_local_tab.restype = i
     lib.nadavca_rescore.argtypes = [p, p, p, p, p, p, p, p,
                                     i, i, i, i, f, f, p]
     lib.nadavca_rescore.restype = i

@@ -6,22 +6,29 @@ made of it.
     python3 scripts/torch_fill_turns.py --old DIR [--reps 20] [--out DIR]
 
 ``DIR`` is the root of another checkout of this repository (for example an
-unpacked ``git archive`` of an earlier commit) whose
-``nadavca_tpu_torch/csrc/viterbi_fill.cu`` and ``viterbi_fill_pair.cu`` have
-the C interfaces ``nadavca_viterbi_fill``, ``nadavca_viterbi_fill_skip`` and
-``nadavca_viterbi_fill_pair`` of this checkout. Those two sources are built
-with ``nvcc`` (one process each, started together) into a library of their
-own under ``DIR/_fill_build`` and bound with ``ctypes``; this checkout's
-kernels are built as the port builds them.
+unpacked ``git archive`` of an earlier commit) in which the single-step
+fills take gathered bands: ``nadavca_tpu_torch/csrc/band_gather.cu`` with
+``nadavca_band_gather``, ``viterbi_fill.cu`` with ``nadavca_viterbi_fill`` /
+``nadavca_viterbi_fill_skip`` on (n_chunks, R, B) bands, and
+``viterbi_fill_pair.cu`` with ``nadavca_viterbi_fill_pair``. Those three
+sources are built with ``nvcc`` (one process each, started together) into a
+library of their own under ``DIR/_fill_build`` and bound with ``ctypes``;
+this checkout's kernels, whose fills gather their band levels from the
+(R, N) level rows themselves, are built as the port builds them.
 
 On the batches ``chip_smoke.py`` checks its kernels on (same seeds: the
 default batch R=256, T=11136, B=128, the batch with pore skips, and the wide
 batches R=32, T=22016, B=256 without and with skips), after checking that
 every version gives the plain version's decision words:
 
-- the fill (K1, or K7a on the batches with skips) old, new, new, old;
-- the two-sample fill (K7b, the same source in both checkouts) in the same
-  turns, as the control that must not move;
+- the older band gather followed by the older fill (K1b + K1, or K7a on the
+  batches with skips) against this checkout's fill with its band gather
+  folded in: old, new, new, old;
+- the older standalone band gather against this checkout's, and two
+  ``torch.gather`` calls (the yardstick of ``chip_smoke.py``): old, new,
+  library, library, new, old;
+- the two-sample fill (K7b, the same source in both checkouts) on the same
+  bands in the same turns, as the control that must not move;
 - every layout (S slots per lane, W = B / (32 S) warps per read) the kernel
   can run at that band width, forward then backward, the table's marked;
 - nanoseconds per serial step (ms / t_len.max()) of each.
@@ -68,7 +75,7 @@ def build_old(old_root: str) -> ctypes.CDLL:
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
              "-fmad=false", "-Xcompiler", "-fPIC"]
     objs, procs = [], []
-    for name in ("viterbi_fill", "viterbi_fill_pair"):
+    for name in ("band_gather", "viterbi_fill", "viterbi_fill_pair"):
         obj = os.path.join(out, name + ".o")
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -86,8 +93,9 @@ def build_old(old_root: str) -> ctypes.CDLL:
     lib.nadavca_viterbi_fill.argtypes = [p] * 10 + [i] * 4 + [f, f, p]
     lib.nadavca_viterbi_fill_skip.argtypes = [p] * 11 + [i] * 4 + [f, f, f, p]
     lib.nadavca_viterbi_fill_pair.argtypes = [p] * 10 + [i] * 4 + [f] * 5 + [p]
+    lib.nadavca_band_gather.argtypes = [p] * 5 + [i] * 4 + [p]
     for fn in (lib.nadavca_viterbi_fill, lib.nadavca_viterbi_fill_skip,
-               lib.nadavca_viterbi_fill_pair):
+               lib.nadavca_viterbi_fill_pair, lib.nadavca_band_gather):
         fn.restype = i
     return lib
 
@@ -96,24 +104,44 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def launch(fn, args, cfg, n_planes, extra):
-    """A fill of either library's C interface on the wrapper's outputs;
-    ``extra`` are the float constants, then any further int arguments."""
-    x, t_len, mu_b, sg_b, lo, delta, n_ref = args
+def old_gather(lib, args, B):
+    """A standalone band gather of the rows in ``args`` through ``lib``'s bare
+    C interface (the older checkout's, or this one's)."""
+    x, _, mu, sigma, lo, _, _ = args
+    R, N = mu.shape
+    n_chunks = lo.shape[1]
+    mu_b = torch.empty((n_chunks, R, B), dtype=torch.float32, device=x.device)
+    sg_b = torch.empty_like(mu_b)
+    code = lib.nadavca_band_gather(mu.data_ptr(), sigma.data_ptr(), lo.data_ptr(),
+                                   mu_b.data_ptr(), sg_b.data_ptr(), R, N, n_chunks, B,
+                                   stream())
+    assert code == 0, code
+    return mu_b, sg_b
+
+
+def launch(fn, args, cfg, n_planes, extra, rows: bool):
+    """A fill of either library's C interface on the wrapper's outputs. With
+    ``rows`` the level arguments are the (R, N) rows and N goes after B (this
+    checkout's single-step fills), else gathered bands. ``extra`` are the
+    float constants, then any further int arguments."""
+    x, t_len, mu, sigma, lo, delta, n_ref = args
     R, T = x.shape
     B = cfg.band_width
     decs, v_out, acc = cuda_dp._fill_outputs(R, T, B, x.device, n_planes)
-    code = fn(x.data_ptr(), t_len.data_ptr(), mu_b.data_ptr(), sg_b.data_ptr(),
+    code = fn(x.data_ptr(), t_len.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
               lo.data_ptr(), delta.data_ptr(), n_ref.data_ptr(),
               *(d.data_ptr() for d in decs), v_out.data_ptr(), acc.data_ptr(),
-              R, T, cfg.signal_chunk, B, *extra, stream())
+              R, T, cfg.signal_chunk, B, *([mu.shape[1]] if rows else []), *extra,
+              stream())
     assert code == 0, code
     return decs, v_out, acc
 
 
-def fill_fns(lib, cfg, layout_s=None):
+def fill_fns(lib, cfg, layout_s=None, rows=True):
     """(callable (args) -> outputs) of the single-step fill of ``lib``: the
-    table's layout, or ``layout_s`` slots per lane through the layout entry."""
+    table's layout, or ``layout_s`` slots per lane through the layout entry.
+    ``args`` hold the level rows; without ``rows`` (the older checkout) the
+    older band gather runs first and the fill takes its bands."""
     if cfg.use_skip:
         consts = [cfg.log_p_stay, cfg.log_p_move, cfg.log_p_skip]
         fn = lib.nadavca_viterbi_fill_skip if layout_s is None else \
@@ -125,13 +153,21 @@ def fill_fns(lib, cfg, layout_s=None):
             lib.nadavca_viterbi_fill_layout
         planes = 1
     extra = consts + ([] if layout_s is None else [layout_s])
-    return lambda args: launch(fn, args, cfg, planes, extra)
+    if rows:
+        return lambda args: launch(fn, args, cfg, planes, extra, rows=True)
+
+    def gather_then_fill(args):
+        mu_b, sg_b = old_gather(lib, args, cfg.band_width)
+        return launch(fn, args[:2] + (mu_b, sg_b) + args[4:], cfg, planes, extra,
+                      rows=False)
+    return gather_then_fill
 
 
 def pair_fn(lib, cfg_pair):
+    """The two-sample fill of ``lib`` on gathered bands."""
     cs_, cm = cfg_pair.log_p_stay, cfg_pair.log_p_move
-    return lambda args: launch(lib.nadavca_viterbi_fill_pair, args, cfg_pair, 1,
-                               [cs_, cm, cs_ + cs_, cs_ + cm, cm + cm])
+    return lambda bands: launch(lib.nadavca_viterbi_fill_pair, bands, cfg_pair, 1,
+                                [cs_, cm, cs_ + cs_, cs_ + cm, cm + cm], rows=False)
 
 
 def assert_same(tag, got, want):
@@ -286,19 +322,40 @@ def main() -> int:
     reps = args.reps
     for name, cfg, (batch, a) in batches(args.seed):
         B = cfg.band_width
+        fargs = (a["x"], a["t_len"], a["mu"], a["sigma"], a["lo"], a["delta"], a["n_ref"])
         mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
-        fargs = (a["x"], a["t_len"], mu_b, sg_b, a["lo"], a["delta"], a["n_ref"])
+        bands = fargs[:2] + (mu_b, sg_b) + fargs[4:]
+        p_mu, p_sg = cuda_dp.band_gather_plain(a["mu"], a["sigma"], a["lo"], B)
+        o_mu, o_sg = old_gather(old, fargs, B)
+        assert all(torch.equal(u, v) for u, v in ((mu_b, p_mu), (sg_b, p_sg),
+                                                  (o_mu, p_mu), (o_sg, p_sg))), name
         steps = int(a["t_len"].max())
-        want = cuda_dp.viterbi_fill_plain(*fargs, cfg)
-        f_old, f_new = fill_fns(old, cfg), fill_fns(new, cfg)
+        want = cuda_dp.viterbi_fill_plain(*bands, cfg)
+        f_old, f_new = fill_fns(old, cfg, rows=False), fill_fns(new, cfg)
         assert_same(f"{name}: old", f_old(fargs), want)
         assert_same(f"{name}: new", f_new(fargs), want)
         assert_same(f"{name}: wrapper", cuda_dp.viterbi_fill(*fargs, cfg), want)
         turns = [cs.event_ms(lambda: f(fargs), reps) for f in (f_old, f_new, f_new, f_old)]
+        # the standalone gathers and the two-torch.gather yardstick
+        idx = (a["lo"].long()[:, :, None] + torch.arange(B, device="cuda")).reshape(
+            a["lo"].shape[0], -1)
+        pad = max(int(idx.max()) + 1 - a["mu"].shape[1], 0)
+        mu_pad = torch.nn.functional.pad(a["mu"], (0, pad), value=0.0)
+        sg_pad = torch.nn.functional.pad(a["sigma"], (0, pad), value=1.0)
+        # both gathers through the same bare ctypes call (no wrapper), then
+        # this checkout's through its wrapper
+        g_old = lambda: old_gather(old, fargs, B)
+        g_new = lambda: old_gather(new, fargs, B)
+        g_lib = lambda: (torch.gather(mu_pad, 1, idx), torch.gather(sg_pad, 1, idx))
+        gather_turns = [cs.event_ms(f, reps)
+                        for f in (g_old, g_new, g_lib, g_lib, g_new, g_old)]
+        wrapper_ms = cs.event_ms(
+            lambda: cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B), reps)
+        del idx, mu_pad, sg_pad, o_mu, o_sg, p_mu, p_sg
         cfg_pair = nt.AlignConfig(band_width=B, dp_pair_step=True)
         p_old, p_new = pair_fn(old, cfg_pair), pair_fn(new, cfg_pair)
-        assert_same(f"{name}: pair", p_new(fargs), p_old(fargs))
-        pair_turns = [cs.event_ms(lambda: f(fargs), reps)
+        assert_same(f"{name}: pair", p_new(bands), p_old(bands))
+        pair_turns = [cs.event_ms(lambda: f(bands), reps)
                       for f in (p_old, p_new, p_new, p_old)]
         S_kept, W_kept = cuda_dp.fill_layout(B, cfg.use_skip)
         lays = layouts(B)
@@ -312,15 +369,18 @@ def main() -> int:
         lay_out = [{"S": s, "W": B // (32 * s), "kept": s == S_kept, "ms_in_turns": ms[s],
                     "ns_per_step": sum(ms[s]) / len(ms[s]) / steps * 1e6} for s in lays]
         cs.emit({"batch": name, "R": batch.x.shape[0], "T": batch.x.shape[1], "B": B,
-                 "kernel": "viterbi_fill_skip" if cfg.use_skip else "viterbi_fill",
+                 "kernel": ("band_gather + viterbi_fill_skip" if cfg.use_skip
+                            else "band_gather + viterbi_fill") + " -> folded",
                  "serial_steps": steps, "reps": reps, "layout_kept": [S_kept, W_kept],
                  "old_new_new_old_ms": turns,
                  "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
                  "ns_per_step_old": (turns[0] + turns[3]) / 2 / steps * 1e6,
                  "ns_per_step_new": (turns[1] + turns[2]) / 2 / steps * 1e6,
+                 "band_gather_old_new_lib_lib_new_old_ms": gather_turns,
+                 "band_gather_new_through_wrapper_ms": wrapper_ms,
                  "pair_fill_old_new_new_old_ms": pair_turns,
                  "layouts": lay_out, "clocks_after": smi("clocks.sm")})
-        del want, mu_b, sg_b
+        del want, mu_b, sg_b, bands
     return 0
 
 

@@ -141,9 +141,8 @@ def main() -> int:
     reps = args.reps
     for name, cfg, (batch, a) in batches(args.seed):
         C = cfg.signal_chunk
-        mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], cfg.band_width)
-        decs, v_fin, acc = cuda_dp.viterbi_fill(a["x"], a["t_len"], mu_b, sg_b, a["lo"],
-                                                a["delta"], a["n_ref"], cfg)
+        decs, v_fin, acc = cuda_dp.viterbi_fill(a["x"], a["t_len"], a["mu"], a["sigma"],
+                                                a["lo"], a["delta"], a["n_ref"], cfg)
         j_end, _ = cuda_dp.final_slot_and_score(v_fin, acc, a["lo"][:, -1], a["n_ref"])
         walk_args = (decs, a["lo"], a["delta"], j_end, C)
         new = lambda: cuda_dp.backtrack(*walk_args)

@@ -6,7 +6,8 @@ also emits the path's segment counts). This file writes the same three
 passes in numpy, for the test only, and holds them bit for bit against the
 plain versions of the contract, ``cuda_dp.backtrack_plain`` and
 ``cuda_dp.path_counts_plain``, on seeded random decision words and band
-tables: one and two planes, B = 128 and 256, pointers that leave the band,
+tables: one and two planes, B = 128, 256, 384 and 1024 (the most the kernel
+takes), pointers that leave the band,
 final slots at both band edges, t_len of 0, 1 and T, and segment boundaries
 on and off chunk boundaries. The kernel itself is held against the plain
 versions on the card (``tests/test_torch_card.py``, ``chip_smoke.py``).
@@ -163,6 +164,11 @@ CASES = {
     "b128_two_planes": (128, 2, 128, 16, 4, 0.3),
     "b256_one_plane": (256, 1, 32, 12, 5, 0.4),
     "b256_two_planes_one_segment": (256, 2, 64, 8, 8, 0.5),
+    # past 256 slots: 16-bit codes in 6 and 16 registers a lane (B / 64)
+    "b384_one_plane": (384, 1, 128, 12, 5, 0.4),
+    "b384_two_planes": (384, 2, 64, 10, 4, 0.35),
+    "b1024_one_plane": (1024, 1, 64, 8, 3, 0.45),
+    "b1024_two_planes": (1024, 2, 128, 8, 5, 0.3),
 }
 
 

@@ -46,7 +46,7 @@ def _dp_inputs(card, B, seed=3, C=128):
 
 
 def _launches():
-    return {k.__name__: k.launches for k in cuda_dp.KERNELS}
+    return {k.__name__: k.launches for k in cuda_dp.COUNTERS}
 
 
 def _assert_fill_equal(got, want):
@@ -61,8 +61,8 @@ def _assert_fill_equal(got, want):
 
 
 # band widths of one, two, three and eight warps of the fill (1024: the most
-# it takes, with more than 48 KB of shared memory); C = 32 makes every
-# decision word a chunk of its own. The walk takes B up to 256.
+# it and the walk take, with more than 48 KB of shared memory); C = 32 makes
+# every decision word a chunk of its own
 FILL_SHAPES = [(128, 128), (256, 128), (384, 128), (1024, 128), (128, 32), (384, 32)]
 
 
@@ -75,19 +75,19 @@ def test_kernels_match_plain_versions(card, B, C):
     p_mu, p_sg = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
     assert torch.equal(mu_b, p_mu) and torch.equal(sg_b, p_sg)
 
-    args = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref, cfg)
-    decs, v, acc = cuda_dp.viterbi_fill(*args)
-    _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*args))
+    # the fill gathers its band levels itself: against the plain gather + fill
+    decs, v, acc = cuda_dp.viterbi_fill(x, t_len, mu, sigma, lo_t, dl_t, n_ref, cfg)
+    _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(
+        x, t_len, p_mu, p_sg, lo_t, dl_t, n_ref, cfg))
 
-    walk = B <= 256
-    if walk:
-        j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
-        path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
-        assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
-        _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
-    want = {k: n + (k in ("band_gather", "viterbi_fill"))
-            + walk * ((k == "path_counts") + 2 * (k == "backtrack"))
-            for k, n in before.items()}
+    j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
+    path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
+    assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+    _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
+    want = dict(before)
+    for k, n in (("band_gather", 1), ("viterbi_fill", 1), ("band_gather_folded", 1),
+                 ("backtrack", 2), ("path_counts", 1)):
+        want[k] += n
     assert _launches() == want
 
 
@@ -106,52 +106,52 @@ def _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path):
 @pytest.mark.parametrize("B, C", FILL_SHAPES)
 def test_skip_and_pair_kernels_match_plain_versions(card, B, C):
     x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, seed=4, C=C)
-    mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
+    mu_b, sg_b = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
     before = _launches()
 
     # the skip fill (two planes) and the two-plane walk, through the two
     # names every caller uses
     cfg = AlignConfig(band_width=B, signal_chunk=C, use_skip=True, log_p_skip=-4.6)
-    args = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref, cfg)
-    decs, v, acc = cuda_dp.viterbi_fill(*args)
+    rows = (x, t_len, mu, sigma, lo_t, dl_t, n_ref)
+    bands = (x, t_len, mu_b, sg_b, lo_t, dl_t, n_ref)
+    decs, v, acc = cuda_dp.viterbi_fill(*rows, cfg)
     assert len(decs) == 2
-    _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*args))
+    _assert_fill_equal((decs, v, acc), cuda_dp.viterbi_fill_plain(*bands, cfg))
     assert not bool((decs[0] & decs[1]).any())      # advance 1 or 2, never both
-    walk = B <= 256
-    if walk:
-        j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
-        path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
-        assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
-        _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
-        live = torch.arange(path.shape[1], device=card)[None, 1:] < t_len[:, None]
-        step = (path[:, 1:] - path[:, :-1]) * live
-        assert int(step.max()) == 2 and int(step.min()) >= 0
+    j_end, _ = cuda_dp.final_slot_and_score(v, acc, lo_t[:, -1], n_ref)
+    path = cuda_dp.backtrack(decs, lo_t, dl_t, j_end, C)
+    assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
+    _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
+    live = torch.arange(path.shape[1], device=card)[None, 1:] < t_len[:, None]
+    step = (path[:, 1:] - path[:, :-1]) * live
+    assert int(step.max()) == 2 and int(step.min()) >= 0
 
     # the disabled skip (log_p_skip = -1e30, the default): sums of two such
     # numbers stay finite (a cell dead for several steps may still set a skip
     # bit; no path reaches it)
     cfg_off = AlignConfig(band_width=B, signal_chunk=C, use_skip=True)
-    args_off = args[:-1] + (cfg_off,)
-    got = cuda_dp.viterbi_fill(*args_off)
-    _assert_fill_equal(got, cuda_dp.viterbi_fill_plain(*args_off))
+    got = cuda_dp.viterbi_fill(*rows, cfg_off)
+    _assert_fill_equal(got, cuda_dp.viterbi_fill_plain(*bands, cfg_off))
     assert bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all())
 
-    # the two-sample fill: one plane, the single-step fill's outputs
+    # the two-sample fill: one plane, the single-step fill's outputs; the
+    # wrapper gathers its bands with the standalone band gather
     cfg_pair = AlignConfig(band_width=B, signal_chunk=C, dp_pair_step=True)
-    args_pair = args[:-1] + (cfg_pair,)
-    got = cuda_dp.viterbi_fill(*args_pair)
+    got = cuda_dp.viterbi_fill(*rows, cfg_pair)
     assert len(got[0]) == 1
-    _assert_fill_equal(got, cuda_dp.viterbi_fill_pair_plain(*args_pair))
-    single = cuda_dp.viterbi_fill(*args[:-1], AlignConfig(band_width=B, signal_chunk=C))
+    _assert_fill_equal(got, cuda_dp.viterbi_fill_pair_plain(*bands, cfg_pair))
+    single = cuda_dp.viterbi_fill(*rows, AlignConfig(band_width=B, signal_chunk=C))
     torch.testing.assert_close(got[2] + got[1].max(1).values,
                                single[2] + single[1].max(1).values,
                                rtol=1e-5, atol=2e-3)
     torch.cuda.synchronize()
     want = dict(before, viterbi_fill_skip=before["viterbi_fill_skip"] + 2,
-                backtrack_skip=before["backtrack_skip"] + 2 * walk,
-                path_counts=before["path_counts"] + walk,
+                backtrack_skip=before["backtrack_skip"] + 2,
+                path_counts=before["path_counts"] + 1,
                 viterbi_fill_pair=before["viterbi_fill_pair"] + 1,
-                viterbi_fill=before["viterbi_fill"] + 1)
+                viterbi_fill=before["viterbi_fill"] + 1,
+                band_gather=before["band_gather"] + 1,
+                band_gather_folded=before["band_gather_folded"] + 3)
     assert _launches() == want
 
 
@@ -180,6 +180,41 @@ def _rescore_inputs(card, R, L, T, t_w, k, seed):
     woff[0], woff[-1] = 0, rows_p - L                        # both ends of the table
     return dict(x=x, S=put(S), W=put(W), kk=put(kk), codes=put(codes), em=put(em),
                 mu=put(mu), iv=put(iv), tab=put(tab), woff=put(woff))
+
+
+def _local_tab_inputs(dev, T, k, seed, R=8, L=256, rows_p=4096):
+    """Dwell paths (reads 0 and 5 dwell 2000 samples inside tile 0, so from
+    T = 2304 on the span mask trips), the walk's counts of them, window codes
+    with a few non-bases, and random genome tables with both ends of the
+    table among the offsets."""
+    from nadavca_tpu_torch.ops import cuda_rescore
+
+    rng = np.random.default_rng(seed)
+    N = L - k + 1
+    codes = rng.integers(0, 4, (R, L)).astype(np.int32)
+    codes[3, 100:104] = 4
+    path = np.zeros((R, T), np.int32)
+    t_len = np.zeros(R, np.int32)
+    for r in range(R):
+        dwell = rng.integers(4, 12, N)
+        if r in (0, 5):
+            dwell[30:50] = 100
+        p = np.repeat(np.arange(N), dwell)[:T] + (3 if r == 2 else 0)
+        t_len[r] = len(p)
+        path[r, :len(p)] = p
+        path[r, len(p):] = p[-1]
+    k4 = 4 * k
+    sg = rng.uniform(0.1, 0.4, (k4, rows_p)).astype(np.float32)
+    tab = np.stack([(-np.log(sg) - 0.9189385).astype(np.float32),
+                    rng.normal(0, 1, (k4, rows_p)).astype(np.float32),
+                    (0.5 / (sg * sg)).astype(np.float32)])
+    woff = rng.integers(0, rows_p - L + 1, R).astype(np.int32)
+    woff[0], woff[-1] = 0, rows_p - L
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    path_t, t_len_t = put(path), put(t_len)
+    cnt = cuda_dp.path_counts_plain(path_t, cuda_rescore.count_lanes(N), t_len_t)
+    return (put(rng.normal(size=(R, T)).astype(np.float32)), path_t, t_len_t, cnt,
+            put(codes), put(woff), put(tab), put(rng.random(rows_p) > 0.05), N)
 
 
 @pytest.mark.parametrize("k", [6, 3, 8])
@@ -221,11 +256,17 @@ def test_rescore_kernels_match_plain_versions(card, k):
     assert torch.equal(xs_slab, p_slab)
     assert bool((p_slab == 0).all(dim=0).any()) and bool((p_slab != 0).any())
 
-    # K5 / K6: the same operations in the same order (-fmad=false)
-    args = (xs, d["W"], d["kk"], d["codes"])
-    got = cuda_rescore.rescore_fill_tab(*args, d["woff"], d["tab"], cfg, t_w)
-    want = cuda_rescore.rescore_fill_tab_plain(*args, d["woff"], d["tab"], cfg, t_w)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+    # K5 with K4 and the glue folded in: the slab rule with a TMA copy (T a
+    # multiple of 4), with the threads' copy (rows not 16-byte aligned), and
+    # below T = 2304 (the whole row, indices clamped); the same operations in
+    # the same order as the plain composition (-fmad=false)
+    for T_loc in (3000, 2561, 2000):
+        a = _local_tab_inputs(card, T_loc, k, seed=k + T_loc)
+        got = cuda_rescore.rescore_local_tab(*a, cfg, t_w)
+        want = cuda_rescore.rescore_local_tab_plain(*a, cfg, t_w)
+        assert torch.equal(got == 0, want == 0), T_loc
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+        assert bool((want != 0).any(2).sum() > 200), T_loc
     got = cuda_rescore.rescore_fill(xs, d["em"], d["mu"], d["iv"], d["W"], d["kk"],
                                     d["codes"], cfg, t_w)
     want = cuda_rescore.rescore_fill_plain(xs, d["em"], d["mu"], d["iv"], d["W"],
@@ -235,10 +276,12 @@ def test_rescore_kernels_match_plain_versions(card, k):
     assert float(((got - want).abs() * live).max()) <= 1e-4
     torch.cuda.synchronize()
     assert [kern.launches for kern in cuda_rescore.KERNELS] == [
-        b + n for b, n in zip(before, (2, 1, 1))]
+        b + n for b, n in zip(before, (2, 3, 1))]
     assert cuda_dp.path_counts.launches == counts_before + 1
+    a = list(_local_tab_inputs(card, 3000, k, seed=0))
+    a[5] = a[5] + 1                          # the last read's offset leaves the table
     with pytest.raises(ValueError, match="leave the table"):
-        cuda_rescore.rescore_fill_tab(*args, d["woff"] + 1, d["tab"], cfg, t_w)
+        cuda_rescore.rescore_local_tab(*a, cfg, t_w)
 
 
 def test_local_windows_on_the_card_needs_the_walks_counts(card):
@@ -262,8 +305,52 @@ def test_a_cpu_run_launches_no_kernel(card):
     from nadavca_tpu_torch.ops import cuda_rescore
 
     d = _rescore_inputs(torch.device("cpu"), 2, 128, 2600, 32, 6, seed=0)
-    before = [kern.launches for kern in cuda_dp.KERNELS + cuda_rescore.KERNELS]
-    xs = cuda_rescore.shear_gather(d["x"], d["S"], 32)
-    cuda_rescore.rescore_fill_tab(xs, d["W"].clamp(max=32), d["kk"], d["codes"],
-                                  d["woff"], d["tab"], AlignConfig(), 32)
-    assert [kern.launches for kern in cuda_dp.KERNELS + cuda_rescore.KERNELS] == before
+    before = [kern.launches for kern in cuda_dp.COUNTERS + cuda_rescore.KERNELS]
+    cuda_rescore.shear_gather(d["x"], d["S"], 32)
+    cuda_rescore.rescore_local_tab(*_local_tab_inputs(torch.device("cpu"), 2600, 6, 0),
+                                   AlignConfig(), 32)
+    assert [kern.launches for kern in cuda_dp.COUNTERS + cuda_rescore.KERNELS] == before
+
+
+def test_call_snps_at_band_width_384(card):
+    """A band wider than 256 slots end to end on the card (the walk took at
+    most 256 before): the same calls and alignments as the CPU run of the
+    same reads, where every wrapper runs its plain version."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import api
+    from nadavca_tpu_torch.genome import Contig, Genome
+    from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
+
+    rng = np.random.default_rng(6)
+    model = nt.default_model()
+    sample = random_genome(rng, length=4000)
+    codes = sample.contigs[0].codes.copy()
+    for p in (700, 1500, 2300, 3100):
+        codes[p] = (codes[p] + 1) % 4
+    reference = Genome([Contig(sample.contigs[0].name, codes)])
+    reads = [simulate_read(sample, sample.contigs[0].name, model, rng, read_len=700,
+                           read_id=f"r{i:03d}") for i in range(48)]
+    raws = [api.raw_read_from_simulated(r) for r in reads]
+    cfg = AlignConfig(band_width=384)
+    kw = dict(config=cfg, model=model, batch_reads=32, prep="python")
+    before = _launches()
+    calls = api.call_snps_reads(reference, raws, device="cuda", **kw)
+    alns = api.align_reads(reference, raws, device="cuda", **kw)
+    torch.cuda.synchronize()
+    got = _launches()
+    assert got["backtrack"] > before["backtrack"] and got["band_gather"] == before["band_gather"]
+    c_calls = api.call_snps_reads(reference, raws, device="cpu", **kw)
+    c_alns = api.align_reads(reference, raws, device="cpu", **kw)
+    key = lambda c: (c.contig, c.position, c.ref_base, c.alt_base, c.coverage)
+    assert [key(c) for c in calls] == [key(c) for c in c_calls] and len(calls) >= 3
+    assert len(alns) == len(c_alns) >= 40
+    same = sum(np.array_equal(a.seg_start, b.seg_start) for a, b in zip(alns, c_alns))
+    # a read may differ only by a tie between identical levels (logf on the
+    # card, log on the CPU); none did on this seed
+    assert same == len(alns)
+    for a, b in zip(alns, c_alns):
+        assert abs(a.score - b.score) <= 2e-3 * max(1.0, abs(b.score))
+        np.testing.assert_allclose(a.base_loglik, b.base_loglik, rtol=1e-5, atol=1e-3)
+    with pytest.raises(ValueError, match="exceeds 1024"):
+        api.call_snps_reads(reference, raws[:1], config=AlignConfig(band_width=1152),
+                            model=model, device="cuda")

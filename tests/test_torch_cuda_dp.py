@@ -19,12 +19,13 @@ from nadavca_tpu.kmer_model import default_model
 from nadavca_tpu.ops import pallas_dp, pallas_rescore
 from nadavca_tpu.sched import build_chunked_bands
 
+from nadavca_tpu_torch import pipeline as tpipe
 from nadavca_tpu_torch.config import AlignConfig
 from nadavca_tpu_torch.ops import cuda_dp
 from nadavca_tpu_torch.sched.bands import ChunkedBands, gather_band_levels
 
 
-def _make_batch(seed, lens, band_width):
+def _make_batch(seed, lens, band_width, chunk=128):
     rng = np.random.default_rng(seed)
     model = default_model()
     genome = random_genome(rng, length=3000)
@@ -50,7 +51,7 @@ def _make_batch(seed, lens, band_width):
         n_ref[r] = len(m)
         anchors[r, :t] = rd.true_path
         anchors[r, t:] = rd.true_path[-1]
-    bands = build_chunked_bands(anchors, t_len, n_ref, band_width, 128)
+    bands = build_chunked_bands(anchors, t_len, n_ref, band_width, chunk)
     return dict(x=x, t_len=t_len, mu=mu, sigma=sigma, n_ref=n_ref,
                 lo=bands.lo, delta=bands.delta)
 
@@ -110,9 +111,10 @@ def test_band_gather_matches_pallas(case):
 
 def test_viterbi_fill_matches_pallas(case):
     t = case["t"]
+    # the fill gathers its band levels from the rows (case["mu_b"] is what the
+    # Pallas band gather made of them: test_band_gather_matches_pallas)
     (dec,), v_fin, acc = cuda_dp.viterbi_fill(
-        t["x"], t["t_len"], torch.from_numpy(case["mu_b"]),
-        torch.from_numpy(case["sg_b"]), t["lo"], t["delta"], t["n_ref"],
+        t["x"], t["t_len"], t["mu"], t["sigma"], t["lo"], t["delta"], t["n_ref"],
         case["tcfg"])
     # decisions: the same expression in the same order on both sides, so the
     # packed words are equal bit for bit — except at exact ties. Two adjacent
@@ -194,6 +196,43 @@ def test_cuda_viterbi_batch_matches_pallas(case):
     np.testing.assert_array_equal(res_np.score.numpy(), res_t.score.numpy())
 
 
+def test_walk_past_256_slots_matches_jax():
+    """B = 384, beyond the 256 slots the card's first walk took: the port's
+    walk with counts on the JAX fill's bits against ``backtrack_from_bits``
+    and ``path_counts_pallas`` (``signal_chunk=32``: the fill compiles
+    quickly in interpret mode at that chunk)."""
+    B, C = 384, 32
+    b = _make_batch(5, (520, 450, 60, 480, 430, 470, 440, 300), B, chunk=C)
+    j = {k: jnp.asarray(v) for k, v in b.items()}
+    t = {k: torch.from_numpy(v.copy()) for k, v in b.items()}
+    R, n_chunks = b["lo"].shape
+    jcfg = JaxConfig(band_width=B, signal_chunk=C, read_tile=8, kernel_unroll=1)
+    mu_b, sg_b = pallas_dp.band_gather_pallas(j["mu"], j["sigma"], j["lo"], B,
+                                              interpret=True)
+    decs, v_fin, acc = pallas_dp.viterbi_fill_pallas(
+        j["x"], j["t_len"], mu_b, sg_b, j["lo"].T.reshape(n_chunks, R, 1),
+        j["delta"].T.reshape(n_chunks, R, 1), j["n_ref"], jcfg, interpret=True)
+    j_end, _ = cuda_dp.final_slot_and_score(
+        torch.from_numpy(np.array(v_fin)), torch.from_numpy(np.array(acc)),
+        t["lo"][:, -1], t["n_ref"])
+    want = np.asarray(pallas_dp.backtrack_from_bits(
+        decs, j["lo"], j["delta"], jnp.asarray(j_end.numpy()), chunk_size=C))
+    n_lanes = 128 * ((int(b["n_ref"].max()) + 1 + 127) // 128)
+    path, cnt = cuda_dp.backtrack(tuple(torch.from_numpy(np.array(d)) for d in decs),
+                                  t["lo"], t["delta"], j_end, C, t_len=t["t_len"],
+                                  n_lanes=n_lanes)
+    np.testing.assert_array_equal(path.numpy(), want)
+    live = np.arange(want.shape[1])[None, :] < b["t_len"][:, None]
+    want_cnt = np.asarray(pallas_rescore.path_counts_pallas(
+        jnp.asarray(np.where(live, want, n_lanes).astype(np.int32)), n_lanes,
+        t_len=jnp.asarray(b["t_len"]), interpret=True))
+    np.testing.assert_array_equal(cnt.numpy(), want_cnt)
+    # the band really moved, and every read's path is nondecreasing
+    assert (b["delta"][:, 1:] > 0).any()
+    for r in range(R):
+        assert (np.diff(want[r, : b["t_len"][r]]) >= 0).all()
+
+
 def test_argmax_takes_the_first_maximum():
     # final_slot_and_score must break ties like jnp.argmax: first maximum
     v = torch.tensor([[0.0, 1.5, 1.5, -1.0], [2.0, 2.0, 2.0, 2.0]])
@@ -211,12 +250,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     cfg = AlignConfig()
     x = torch.zeros((8, 128))
     i = torch.zeros((8,), dtype=torch.int32)
-    band = torch.zeros((1, 8, 128))
+    band = torch.zeros((8, 200))             # the level rows, (R, N)
     lo = torch.zeros((8, 1), dtype=torch.int32)
     with pytest.raises(TypeError):          # float64 signal
         cuda_dp.viterbi_fill(x.double(), i, band, band, lo, lo, i, cfg)
     with pytest.raises(ValueError):         # T not a multiple of the chunk
         cuda_dp.viterbi_fill(torch.zeros((8, 100)), i, band, band, lo, lo, i, cfg)
+    with pytest.raises(ValueError):         # chunk-major bands are not rows
+        cuda_dp.viterbi_fill(x, i, torch.zeros((1, 8, 128)), torch.zeros((1, 8, 128)),
+                             lo, lo, i, cfg)
+    # a band width the kernels do not take raises before anything runs on the
+    # card, and not on the CPU, where the plain versions take any
+    with pytest.raises(ValueError, match="exceeds 1024"):
+        tpipe.check_supported(AlignConfig(band_width=1152), "cuda", "cuda")
+    tpipe.check_supported(AlignConfig(band_width=1152), "cuda", "cpu")
+    tpipe.check_supported(AlignConfig(band_width=1152), "scan", "cuda")
     with pytest.raises(ValueError):         # non-contiguous levels
         cuda_dp.band_gather(torch.zeros((64, 8)).T, torch.ones((8, 64)), lo, 128)
     with pytest.raises(TypeError):          # int64 band starts
@@ -230,6 +278,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):         # a bare tensor is not a plane tuple
         cuda_dp.backtrack(decs[0], lo, lo, i, 128)
     # on the CPU the plain versions run and no kernel launch is counted
-    before = [k.launches for k in cuda_dp.KERNELS]
+    before = [k.launches for k in cuda_dp.COUNTERS]
     cuda_dp.band_gather(torch.zeros((8, 64)), torch.ones((8, 64)), lo, 128)
-    assert [k.launches for k in cuda_dp.KERNELS] == before
+    cuda_dp.viterbi_fill(x, i, band, band, lo, lo, i, cfg)
+    assert [k.launches for k in cuda_dp.COUNTERS] == before

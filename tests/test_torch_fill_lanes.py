@@ -7,16 +7,19 @@ warp that writes the emissions of the same slots into a table, two buffers of
 from lane l - 1 by a shuffle-up; lane 0 takes NEG_INF, or the left warp's
 edge, which that warp wrote into a ring in shared memory while it ran the
 same 16 samples before. The slots of a lane are updated from the last down,
-so each reads the old row. A chunk starts with the realign by delta through
+so each reads the old row. The producers gather each chunk's band levels
+themselves from the read's (R, N) rows of expected levels, 0 and 1 where a
+slot's position leaves [0, N) (the band gather folded into the fill). A chunk starts with the realign by delta through
 a shared row and ends with the row maximum, a butterfly over the lanes of
 each warp and a maximum over the warps. This file writes that mapping in
 numpy, the warps of each half-group in the kernel's order and every read at
 once, and holds its decision words bit for bit, and V and acc within the
-card test's tolerance, against
-``cuda_dp.viterbi_fill_plain`` on seeded inputs: B = 128, 256, 384 at the
+card test's tolerance, against the plain band gather and fill
+(``cuda_dp.band_gather_plain``, ``cuda_dp.viterbi_fill_plain``) on seeded
+inputs: B = 128, 256, 384 at the
 (S, W) of ``cuda_dp.fill_layout``, without and with skip, C = 32 and 128,
-deltas of 0, >= S, >= 32*S and >= B, t_len of 0, 1, 31, 33 and T, and n_ref
-ending inside a lane. The kernel itself is held against the plain version on
+deltas of 0, >= S, >= 32*S and >= B, t_len of 0, 1, 31, 33 and T, n_ref
+ending inside a lane, and a band that runs past N inside a lane. The kernel itself is held against the plain version on
 the card (``tests/test_torch_card.py``, ``chip_smoke.py``).
 """
 
@@ -49,10 +52,12 @@ def warp_max(a):
     return a[..., 0]
 
 
-def lane_fill(x, t_len, mu_band, sg_band, lo, delta, n_ref, cfg, S, W):
-    """The kernel's mapping for every read at once. Returns (decs, V, acc)
-    as numpy arrays shaped like the plain version's."""
+def lane_fill(x, t_len, mu_rows, sg_rows, lo, delta, n_ref, cfg, S, W):
+    """The kernel's mapping for every read at once, from the (R, N) level
+    rows. Returns (decs, V, acc) as numpy arrays shaped like the plain
+    version's."""
     R, T = x.shape
+    N = mu_rows.shape[1]
     B, C = cfg.band_width, cfg.signal_chunk
     assert B == 32 * S * W
     skip = bool(cfg.use_skip)
@@ -84,8 +89,12 @@ def lane_fill(x, t_len, mu_band, sg_band, lo, delta, n_ref, cfg, S, W):
             ok = (src >= 0) & (src < B)
             v = np.where(ok, row[rows[:, None, None, None], np.clip(src, 0, B - 1)],
                          NEG_INF).astype(f32)
-        mu = mu_band[c].reshape(R, W, 32, S)
-        sg = sg_band[c].reshape(R, W, 32, S)
+        # the producers' gather: slot j of the chunk is position lo + j
+        pos = lo[:, c].astype(np.int64)[:, None, None, None] + j[None]
+        inside = (pos >= 0) & (pos < N)
+        at = (rows[:, None, None, None], np.clip(pos, 0, N - 1))
+        mu = np.where(inside, mu_rows[at], f32(0))
+        sg = np.where(inside, sg_rows[at], f32(1))
         # the log as the plain version takes it; the card's logf is checked there
         log_sg = torch.log(torch.from_numpy(sg)).numpy()
         valid = (lo[:, c].astype(np.int64)[:, None, None, None] + j[None]
@@ -165,18 +174,23 @@ def fill_inputs(B, C, S, seed):
     T = n_chunks * C
     R = 7
     x = rng.normal(0, 1, (R, T)).astype(np.float32)
-    mu_band = rng.normal(0, 1, (n_chunks, R, B)).astype(np.float32)
-    sg_band = rng.uniform(0.1, 0.4, (n_chunks, R, B)).astype(np.float32)
     # deltas of 0, >= S (inside a warp), >= 32*S (across warps) and >= B
     choices = np.array([0, 0, 0, 1, S + 1, 2 * S + 3, 32 * S + 5, B + 7])
     delta = rng.choice(choices, (R, n_chunks)).astype(np.int32)
     delta[:, 0] = 0
     delta[0, 1:] = [S + 1, 32 * S + 2, B][: n_chunks - 1] + [0] * max(n_chunks - 4, 0)
+    # read 4 (t_len = T) ends furthest along, and its last band runs past the
+    # rows' end inside a lane: slots from B/2 + S - 1 on read the pad values
+    ends = np.cumsum(delta, axis=1)[:, -1]
+    delta[4, -1] += ends.max() - ends[4] + 1
     lo = np.cumsum(delta, axis=1).astype(np.int32)
+    N = int(lo[4, -1]) + B // 2 + S - 1
+    mu = rng.normal(0, 1, (R, N)).astype(np.float32)
+    sigma = rng.uniform(0.1, 0.4, (R, N)).astype(np.float32)
     t_len = np.array([0, 1, 31, 33, T, T - 7, int(rng.integers(34, T))], np.int32)
     # every read's window ends inside a lane's slots at half the run
     n_ref = (lo[:, n_chunks // 2] + B // 2 + S // 2 + 1).astype(np.int32)
-    return x, t_len, mu_band, sg_band, lo, delta, n_ref
+    return x, t_len, mu, sigma, lo, delta, n_ref
 
 
 @pytest.mark.parametrize("C", [32, 128])
@@ -189,8 +203,17 @@ def test_lane_model_matches_the_plain_fill(B, skip, C):
                       **(dict(use_skip=True, log_p_skip=-4.6) if skip else {}))
     arrays = fill_inputs(B, C, S, seed=B + C + skip)
     decs, v, acc = lane_fill(*arrays, cfg, S, W)
-    p_decs, p_v, p_acc = cuda_dp.viterbi_fill_plain(
-        *(torch.from_numpy(a) for a in arrays), cfg)
+    x, t_len, mu, sigma, lo, delta, n_ref = (torch.from_numpy(a) for a in arrays)
+    mu_b, sg_b = cuda_dp.band_gather_plain(mu, sigma, lo, B)
+    # the band past the rows' end holds pad values in the last chunk of read 4
+    assert bool((mu_b[-1, 4, -1] == 0) & (sg_b[-1, 4, -1] == 1))
+    assert bool((sg_b[-1, 4, : B // 2 + S - 1] != 1).all())
+    p_decs, p_v, p_acc = cuda_dp.viterbi_fill_plain(x, t_len, mu_b, sg_b, lo, delta,
+                                                    n_ref, cfg)
+    # the wrapper on CPU tensors composes the same two plain versions
+    w_decs, w_v, w_acc = cuda_dp.viterbi_fill(x, t_len, mu, sigma, lo, delta, n_ref, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(w_decs, p_decs))
+    assert torch.equal(w_v, p_v) and torch.equal(w_acc, p_acc)
     assert len(decs) == len(p_decs) == (2 if skip else 1)
     for d, p in zip(decs, p_decs):
         assert np.array_equal(d, p.numpy())

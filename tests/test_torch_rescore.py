@@ -35,6 +35,7 @@ from nadavca_tpu_torch import pipeline as tpipe
 from nadavca_tpu_torch.config import AlignConfig
 from nadavca_tpu_torch.ops import banded_dp as tbanded
 from nadavca_tpu_torch.ops import cuda_dp, cuda_rescore
+from nadavca_tpu_torch.ops.subst_tables import SubstTables
 
 JCFG = JaxConfig(read_tile=8)
 TCFG = AlignConfig(read_tile=8)
@@ -224,11 +225,11 @@ def test_rescore_fill_tab_plain_matches_pallas(world, dp_inputs):
     want = np.asarray(pallas_rescore.rescore_fill_tab_pallas(
         j["xs"], j["W"], j["kk"], j["codes"], jnp.asarray(world["woff"]),
         world["jt"].tab4, JCFG, d["t_w"], interpret=True))
-    before = cuda_rescore.rescore_fill_tab.launches
-    got = cuda_rescore.rescore_fill_tab(
+    before = [kern.launches for kern in cuda_rescore.KERNELS]
+    got = cuda_rescore.rescore_fill_tab_plain(
         d["xs"], d["W"], d["kk"], d["codes"], _t(world["woff"]),
         world["tt"].tab, TCFG, d["t_w"]).numpy()
-    assert cuda_rescore.rescore_fill_tab.launches == before
+    assert [kern.launches for kern in cuda_rescore.KERNELS] == before
     assert got.shape == want.shape == (4,) + tuple(d["W"].shape)
     live = _live(d, k)
     assert live.sum() > 1000
@@ -255,19 +256,26 @@ def test_rescore_fill_plain_matches_pallas(world, dp_inputs):
 
 def test_rescore_wrappers_refuse_bad_arguments(world, dp_inputs):
     d = dp_inputs
-    args = (d["xs"], d["W"], d["kk"], d["codes"])
+    x, path, t_len, codes, ids, _, _ = _common(world["arrs"], _t)
+    tt = world["tt"]
+    args = (x, path, t_len, None, codes)
+    tail = (tt.tab, tt.valid, ids.shape[1], TCFG, d["t_w"])
     with pytest.raises(ValueError, match="leave the table"):
-        cuda_rescore.rescore_fill_tab(
-            *args, torch.full((8,), world["tt"].rows_p - 100, dtype=torch.int32),
-            world["tt"].tab, TCFG, d["t_w"])
+        cuda_rescore.rescore_local_tab(
+            *args, torch.full((8,), tt.rows_p - 100, dtype=torch.int32), *tail)
     with pytest.raises(ValueError, match="leave the table"):
-        cuda_rescore.rescore_fill_tab(
-            *args, torch.full((8,), -1, dtype=torch.int32),
-            world["tt"].tab, TCFG, d["t_w"])
+        cuda_rescore.rescore_local_tab(
+            *args, torch.full((8,), -1, dtype=torch.int32), *tail)
     with pytest.raises(TypeError):
-        cuda_rescore.rescore_fill_tab(
-            d["xs"], d["W"].long(), d["kk"], d["codes"], _t(world["woff"]),
-            world["tt"].tab, TCFG, d["t_w"])
+        cuda_rescore.rescore_local_tab(x, path.long(), t_len, None, codes,
+                                       _t(world["woff"]), *tail)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_rescore.rescore_local_tab(x, path, t_len, None, codes[:, :200],
+                                       _t(world["woff"]), *tail)
+    with pytest.raises(ValueError, match="leave the table"):
+        cuda_rescore.rescore_fill_tab_plain(
+            d["xs"], d["W"], d["kk"], d["codes"], torch.full((8,), -1, dtype=torch.int32),
+            tt.tab, TCFG, d["t_w"])
     with pytest.raises(ValueError):
         cuda_rescore.rescore_fill(d["xs"], d["em"][:20], d["mu"], d["iv"],
                                   d["W"], d["kk"], d["codes"], TCFG, d["t_w"])
@@ -500,3 +508,183 @@ def test_pipeline_device_step_runs_local_with_and_without_tables(world):
         interior = slice(first + k, min(int(tb.window_len[r]), last) - k)
         np.testing.assert_allclose(a[r, interior], b[r, interior], **TOL)
         assert (a[r, :first + k - 1] == 0).all() and (b[r, first + 1:first + k - 1] != 0).any()
+
+
+# ------------------------------------- the fused kernel's tile mapping (K4+K5)
+F32 = np.float32
+LT, SPAN, SLAB = 128, 2048, 2048 + 256
+
+
+def local_tab_model(x, path, t_len, cnt, codes, woff, tab, valid, N, k, t_w, cfg):
+    """``csrc/rescore.cu`` rescore_local_tab_kernel in numpy, for the test
+    only: one block per (read, 128-position tile), a position's window from
+    the counts and the path's two ends, the tile's slab base from the block
+    minimum, the samples from the staged slab (or the whole row with its last
+    sample repeated t_w times, below T = 2304), the masks, the positions
+    ranked by falling window length and taken 8 at a time, the DP per base
+    on the slab at offset S_c - base, and the reference base's value from
+    the same position. Returns (R, L, 4) float32."""
+    R, T = x.shape
+    L = codes.shape[1]
+    lps, lpm = F32(cfg.log_p_stay), F32(cfg.log_p_move)
+    neg = F32(-1e30)
+    out = np.zeros((R, L, 4), F32)
+    rule = T >= SLAB
+    for r in range(R):
+        first = int(path[r, 0])
+        last = int(path[r, min(max(int(t_len[r]) - 1, 0), T - 1)])
+        for tile in range(L // LT):
+            i = tile * LT + np.arange(LT)
+            ic = np.clip(i - k + 1, 0, N - 1)
+            ie = np.clip(i, 0, N - 1)
+            S = cnt[r, ic].astype(np.int64)
+            W = np.clip(cnt[r, ie + 1] - S, 0, t_w)
+            S_c = np.clip(S, 0, T - 1)
+            kk = np.minimum(ie, last) - np.maximum(ic, first) + 1
+            code = codes[r, i]
+            if rule:
+                base = (min(max(int(S_c.min()), 0), T - SLAB) // LT) * LT
+                slab = x[r, base:base + SLAB]
+            else:
+                base = 0
+                slab = np.concatenate([x[r], np.full(t_w, x[r, T - 1], F32)])
+            off = S_c - base
+            if rule:
+                W = np.where((off >= 0) & (off < SPAN), W, 0)      # the span mask
+            col = woff[r] + i
+            ok = (kk > 0) & (code < 4) & (kk == k) & valid[col] & (W > 0)
+            w_ok = np.where(ok, W, 0)
+            # rank: falling window length, ties by position; perm[rank] = t
+            t = np.arange(LT)
+            rank = ((w_ok[None, :] > w_ok[:, None])
+                    | ((w_ok[None, :] == w_ok[:, None]) & (t[None, :] < t[:, None]))).sum(1)
+            perm = np.empty(LT, np.int64)
+            perm[rank] = t
+            for g in range(LT // 8):                     # 8 positions x 4 bases
+                q = perm[8 * g:8 * g + 8]
+                live = w_ok[q] > 0
+                if not live.any():
+                    out[r, i[q]] = 0
+                    continue
+                # constants (k, 8, 4): slot j, base b of table row j * 4 + b
+                em, mu, iv = (tab[p][np.arange(k)[:, None, None] * 4
+                                     + np.arange(4)[None, None, :], col[q][None, :, None]]
+                              for p in range(3))
+                wq, off_q = w_ok[q], np.where(live, off[q], 0)
+                d0 = slab[off_q][None, :, None] - mu
+                v = np.where(np.arange(k)[:, None, None] == 0, em - d0 * d0 * iv, neg)
+                for s in range(1, int(wq.max())):
+                    xs = slab[np.where(s < wq, off_q + s, 0)][None, :, None]
+                    d = xs - mu
+                    emit = em - d * d * iv
+                    move = np.concatenate([np.full((1, 8, 4), neg, F32), v[:-1]]) + lpm
+                    new = emit + np.maximum(v + lps, move)
+                    v = np.where((s < wq)[None, :, None], new, v)
+                o = v[k - 1]                                      # (8, 4): kk == k
+                ref = o[np.arange(8), np.clip(code[q], 0, 3)]
+                out[r, i[q]] = np.where(live[:, None], o - ref[:, None], F32(0))
+    return out
+
+
+def _random_tables(rng, k, rows_p, R, L):
+    k4 = 4 * k
+    sg = rng.uniform(0.1, 0.4, (k4, rows_p)).astype(np.float32)
+    tab = np.stack([(-np.log(sg) - 0.9189385).astype(np.float32),
+                    rng.normal(0, 1, (k4, rows_p)).astype(np.float32),
+                    (0.5 / (sg * sg)).astype(np.float32)])
+    valid = rng.random(rows_p) > 0.05
+    woff = rng.integers(0, rows_p - L + 1, R).astype(np.int32)
+    woff[0], woff[-1] = 0, rows_p - L                    # both ends of the table
+    return tab, valid, woff
+
+
+def _dwell_case(T, seed=9):
+    """The span-mask fixture above with random genome tables: reads 0 and 5
+    dwell 2000 samples inside tile 0, so from T = 2304 on their tile's
+    positions past the slab are masked."""
+    rng = np.random.default_rng(seed)
+    model = default_model()
+    k, R, L, t_w = model.k, 8, 256, 96
+    N = L - k + 1
+    codes = rng.integers(0, 4, (R, L)).astype(np.int32)
+    codes[3, 100:104] = 4                                # not a real base
+    path = np.zeros((R, T), np.int32)
+    t_len = np.zeros(R, np.int32)
+    for r in range(R):
+        dwell = rng.integers(4, 12, N)
+        if r in (0, 5):
+            dwell[30:50] = 100
+        p = np.repeat(np.arange(N), dwell)[:T] + (3 if r == 2 else 0)
+        t_len[r] = len(p)
+        path[r, :len(p)] = p
+        path[r, len(p):] = p[-1]
+    x = rng.normal(size=(R, T)).astype(np.float32)
+    tab, valid, woff = _random_tables(rng, k, 2048, R, L)
+    return dict(x=x, path=path, t_len=t_len, codes=codes, woff=woff, tab=tab,
+                valid=valid, N=N, k=k, t_w=t_w)
+
+
+def _world_case(world):
+    a, tt = world["arrs"], world["tt"]
+    return dict(x=a["x"], path=a["path"], t_len=a["t_len"], codes=a["codes"],
+                woff=world["woff"], tab=tt.tab.numpy(), valid=tt.valid.numpy(),
+                N=a["ids"].shape[1], k=world["model"].k, t_w=96)
+
+
+@pytest.mark.parametrize("case", ["slab_rule_span_masked", "short_rows_no_slab",
+                                  "world_clipped_base"])
+def test_local_tab_tile_model_matches_the_plain_composition(case, world):
+    """The fused kernel's mapping (numpy model) bit for bit against
+    ``rescore_local_tab_plain`` — the composition the kernel replaces —
+    and through ``base_loglik_local_cuda``."""
+    if case == "slab_rule_span_masked":
+        d = _dwell_case(2560)
+    elif case == "short_rows_no_slab":
+        d = _dwell_case(2303)          # no slab rule: sample indices clamp
+    else:
+        d = _world_case(world)         # T = 2816: the base clips to T - 2304
+    R, T = d["x"].shape
+    k, N, t_w = d["k"], d["N"], d["t_w"]
+    cfg = AlignConfig(k=k)
+    cnt = cuda_dp.path_counts_plain(_t(d["path"]), cuda_rescore.count_lanes(N),
+                                    _t(d["t_len"]))
+    want = local_tab_model(d["x"], d["path"], d["t_len"], cnt.numpy(), d["codes"],
+                           d["woff"], d["tab"], d["valid"], N, k, t_w, cfg)
+    before = [kern.launches for kern in cuda_rescore.KERNELS]
+    args = (_t(d["x"]), _t(d["path"]), _t(d["t_len"]), cnt, _t(d["codes"]),
+            _t(d["woff"]), _t(d["tab"]), _t(d["valid"]), N, cfg, t_w)
+    got = cuda_rescore.rescore_local_tab(*args).numpy()
+    assert [kern.launches for kern in cuda_rescore.KERNELS] == before
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        cuda_rescore.rescore_local_tab_plain(*args).numpy(), want)
+
+    # what the case reaches: masked and unmasked positions, read edges, the
+    # reference base's own row exactly 0, and the rule's branch
+    live = (got != 0).any(2)
+    assert live.sum() > 200 and (~live).sum() > 50
+    assert (np.take_along_axis(got, np.clip(d["codes"], 0, 3)[..., None], 2) == 0).all()
+    first = d["path"][:, 0]
+    for r in range(R):
+        assert (got[r, :first[r] + k - 1] == 0).all()
+    if case != "world_clipped_base":
+        S = cnt.numpy()[:, np.clip(np.arange(256) - k + 1, 0, N - 1)]
+        spread = S[:, :128].max(1) - S[:, :128].min(1)
+        assert spread[0] > SPAN and spread[5] > SPAN
+        tripped = ~live[[0, 5], :128].all() if T >= SLAB else live[[0, 5], 60:128].any()
+        assert tripped
+    else:
+        base = cuda_rescore.shear_slab_base(
+            _t(np.clip(cnt.numpy()[:, np.clip(np.arange(d["codes"].shape[1]) - k + 1,
+                                              0, N - 1)], 0, T - 1)), T, SPAN)
+        assert int(base.max()) == T - SLAB           # the clip to T - 2304 bites
+
+    # base_loglik_local_cuda with tables is this function, to the bit
+    tabs = SubstTables(tab=_t(d["tab"]), valid=_t(d["valid"]), contig_offsets={},
+                       g_total=0, k=k)
+    ids = torch.zeros((R, N), dtype=torch.int32)
+    lm = torch.ones(4 ** k)
+    whole = cuda_rescore.base_loglik_local_cuda(
+        _t(d["x"]), _t(d["path"]), _t(d["t_len"]), _t(d["codes"]), ids, lm, lm, k, cfg,
+        t_w=t_w, tables=tabs, window_off=_t(d["woff"]), cnt=cnt).numpy()
+    np.testing.assert_array_equal(whole, want)

@@ -311,9 +311,9 @@ def test_pair_fill_matches_pallas(pair_case):
     d = pair_case
     t = d["t"]
     tcfg = AlignConfig(band_width=128, dp_pair_step=True)
+    # the rows go in: the wrapper gathers the bands for the two-sample fill
     (dec,), v_fin, acc = cuda_dp.viterbi_fill(
-        t["x"], t["t_len"], torch.from_numpy(d["mu_b"]),
-        torch.from_numpy(d["sg_b"]), t["lo"], t["delta"], t["n_ref"], tcfg)
+        t["x"], t["t_len"], t["mu"], t["sigma"], t["lo"], t["delta"], t["n_ref"], tcfg)
     # word for word, but for broken ties (a pair compares paths through the
     # slots j, j-1 and j-2)
     n_bits = _tie_bits(dec.numpy() ^ d["jdec"], d["mu_b"], d["sg_b"])

@@ -16,16 +16,3 @@
 #define NADAVCA_HALF_LOG_2PI (0.91893853320467274178f)
 
 #define NADAVCA_EXPORT extern "C" __attribute__((visibility("default")))
-
-// Maximum of v over the block's B = 32 * n_warps threads (thread j), through
-// n_warps floats of shared memory. Ends in no barrier: the caller places one
-// before red[] is written again.
-__device__ __forceinline__ float block_max(float v, float* red, int j, int n_warps) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if ((j & 31) == 0) red[j >> 5] = v;
-    __syncthreads();
-    float m = red[0];
-    for (int w = 1; w < n_warps; ++w) m = fmaxf(m, red[w]);
-    return m;
-}

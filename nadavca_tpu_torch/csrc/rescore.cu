@@ -11,21 +11,27 @@
 //                                       v[j-1][b] + log_p_move)   (v[-1] = NEG_INF)
 //   out[b] = v[kk-1][b] - v[kk-1][codes]       (0 where kk-1 is outside [0, K))
 //
-// Both entry points share rescore_body, which reads the samples of a
-// position through a pointer and a stride:
+// Both entry points are one tile kernel (rescore_tile), and differ only in
+// where a position's constants come from and which masks apply:
 //
 //   rescore_local_tab_kernel  replaces nadavca_tpu/ops/pallas_rescore.py:218
 //     (_rescore_tab_kernel, launched by rescore_fill_tab_pallas :326) together
 //     with the shear gather before it (:627, shear_gather_pallas :568) and the
 //     tensor code of the tables branch of base_loglik_local_pallas around
-//     them (:425-480): the constants come from the genome table, the samples
-//     from a slab of x in shared memory, stride 1.
-//   rescore_kernel  replaces :191 (_rescore_kernel, launched by
-//     rescore_fill_pallas :280): constants per batch as (K*4, R, L) arrays,
-//     samples from the shear gather's xs (t_w, R, L), stride R * L.
+//     them (:425-480): the constants come from the genome table.
+//   rescore_local_kernel  replaces :191 (_rescore_kernel, launched by
+//     rescore_fill_pallas :280) together with the same shear gather and the
+//     tensor code of the no-tables branch (:483-517, 530-541): the constants
+//     of slot j and base b are the substituted k-mer's, gathered from three
+//     per-k-mer vectors the wrapper makes once per call; a window clipped by
+//     the read's ends (kk < K) is scored on its kk live slots, and every live
+//     slot must hold a real k-mer (ids >= 0). The port's first design took
+//     one thread per (read, position) and read the shear gather's
+//     (t_w, R, L) samples at stride R * L (201 MB at the main shape) and
+//     (K*4, R, L) constants built in tensor code.
 //
-// rescore_local_tab_kernel: one block of four warps per (read r, tile of 128
-// positions). In order:
+// Either kernel: one block of four warps per (read r, tile of 128 positions).
+// In order:
 //   prologue  one thread per position: its window from the walk's segment
 //             counts cnt and the path's two ends, as the TPU's tensor code
 //             writes it:
@@ -43,16 +49,18 @@
 //             T = 2304 there is no slab rule: the whole row is staged, its
 //             last sample repeated t_w times beyond its end, which is the
 //             clamp of sample indices to T - 1.
-//   masks     a real base, kk == k, the table's validity, W > 0 after the
-//             span mask; a masked position's window counts as empty;
+//   masks     a real base, W > 0 after the span mask, and with tables kk == k
+//             and the table's validity, without them a real k-mer at each
+//             live slot; a masked position's window counts as empty;
 //   order     the positions ranked by falling window length (ties by
 //             position, in shared memory), so that the masked ones come last;
 //   DP        four threads per position, one per candidate base (a thread
-//             holds 3 * K constants and K states): each warp takes groups of
+//             holds 3 * K constants and K states; without tables it makes
+//             them from K ids and three per-k-mer vectors, all in L1): each warp takes groups of
 //             8 positions of consecutive rank in snake order (warp w: groups
 //             w, 7 - w, 8 + w, 15 - w), so a warp's 8 windows are alike and
 //             the four warps' work is balanced; rescore_body on slab +
-//             (S_c - base), stride 1, for the positions not masked;
+//             (S_c - base), for the positions not masked;
 //   epilogue  the reference base's value by a shuffle among the four
 //             threads, and the (R, L, 4) result stored in place: four
 //             threads write a position's 16 bytes, 0 where masked.
@@ -67,8 +75,8 @@
 //
 // Bound: operations for long windows, bytes for short ones: 8 operations per
 // cell (K * 4 cells) and live sample of each position, against x read once
-// per slab, the counts, codes, table columns and validity read once, and the
-// output written once. NEG_INF is the finite -1e30: dead slots sink by
+// per slab, the counts, codes, table columns and validity (or the ids and
+// the per-k-mer vectors) read once, and the output written once. NEG_INF is the finite -1e30: dead slots sink by
 // another -1e30 per step and never reach an infinity.
 //
 // Built with -fmad=false: the expression order above is that of the plain
@@ -76,50 +84,43 @@
 
 #include "common.cuh"
 
-// The DP of one position for NB candidate bases (4, or the one base of a
-// thread): the samples are xp[0], xp[stride], ...; returns in o[b] the value
-// of slot kk1 (0 where kk1 is outside [0, K)).
-template <int K, int NB>
-__device__ __forceinline__ void rescore_body(
-        const float* __restrict__ xp, size_t stride,
-        const float (&em)[K][NB], const float (&mu)[K][NB], const float (&iv)[K][NB],
-        int w, int kk1, float log_p_stay, float log_p_move, float (&o)[NB]) {
-    float v[K][NB];
+#include <type_traits>
+
+// The DP of one position for one candidate base (a thread's): the samples
+// are xp[0], xp[1], ...; returns the value of slot kk1 (0 where kk1 is
+// outside [0, K)).
+template <int K>
+__device__ __forceinline__ float rescore_body(const float* __restrict__ xp,
+                                              const float (&em)[K], const float (&mu)[K],
+                                              const float (&iv)[K], int w, int kk1,
+                                              float log_p_stay, float log_p_move) {
+    float v[K];
     const float x0 = xp[0];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-            const float d0 = x0 - mu[j][b];
-            const float emit0 = em[j][b] - d0 * d0 * iv[j][b];
-            v[j][b] = (j == 0) ? emit0 : NADAVCA_NEG_INF;
-        }
+        const float d0 = x0 - mu[j];
+        const float emit0 = em[j] - d0 * d0 * iv[j];
+        v[j] = (j == 0) ? emit0 : NADAVCA_NEG_INF;
     }
     for (int s = 1; s < w; ++s) {
-        const float x = xp[(size_t)s * stride];
+        const float x = xp[s];
         // slots from the top down, so v[j-1] is still the previous step's
 #pragma unroll
         for (int j = K - 1; j >= 0; --j) {
-#pragma unroll
-            for (int b = 0; b < NB; ++b) {
-                const float d = x - mu[j][b];
-                const float emit = em[j][b] - d * d * iv[j][b];
-                const float stay = v[j][b] + log_p_stay;
-                const float below = (j > 0) ? v[j > 0 ? j - 1 : 0][b] : NADAVCA_NEG_INF;
-                const float move = below + log_p_move;
-                v[j][b] = emit + fmaxf(stay, move);
-            }
+            const float d = x - mu[j];
+            const float emit = em[j] - d * d * iv[j];
+            const float stay = v[j] + log_p_stay;
+            const float below = (j > 0) ? v[j > 0 ? j - 1 : 0] : NADAVCA_NEG_INF;
+            const float move = below + log_p_move;
+            v[j] = emit + fmaxf(stay, move);
         }
     }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) o[b] = 0.0f;
+    float o = 0.0f;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-        if (kk1 == j) {
-#pragma unroll
-            for (int b = 0; b < NB; ++b) o[b] = v[j][b];
-        }
+        if (kk1 == j) o = v[j];
     }
+    return o;
 }
 
 namespace {
@@ -139,23 +140,73 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 
 }  // namespace
 
+// Where a position's constants come from. Tables: the genome's substitution
+// table (3, K*4, rows_p), row j*4 + b, column woff[r] + i, with its validity.
+struct TableSource {
+    const int* __restrict__ woff;
+    const float* __restrict__ tab;
+    const unsigned char* __restrict__ valid;
+    int rows_p;
+};
+
+// Without tables: the window's k-mer ids (R, N), and per k-mer id the
+// emission constant -log(sigma) - log(2 pi) / 2, the mean and 0.5 / sigma^2
+// (n_kmers each), made once per call by the wrapper with the plain version's
+// own tensor expressions: the kernel only gathers them, so its floats are
+// the plain version's.
+struct KmerSource {
+    const int* __restrict__ ids;
+    const float* __restrict__ em;
+    const float* __restrict__ mu;
+    const float* __restrict__ iv;
+    int n_kmers;
+};
+
+// The K constants of slot j, base b of the position i (p_lo, kk, reference
+// code) without tables, as batch_constants writes them: p = p_lo + j,
+// ids_p = ids[clip(p, 0, N-1)], nid = clip(ids_p + (b - code) * 4^(K-1-(i-p)),
+// 0, n_kmers - 1) with the weight 0 where i - p leaves [0, K); em is NEG_INF
+// at a dead slot (j >= kk or ids_p < 0).
 template <int K>
-__global__ void __launch_bounds__(LOCAL_THREADS, 8)
-rescore_local_tab_kernel(const float* __restrict__ x, const int* __restrict__ cnt,
-                         const int* __restrict__ path, const int* __restrict__ t_len,
-                         const int* __restrict__ codes, const int* __restrict__ woff,
-                         const float* __restrict__ tab,
-                         const unsigned char* __restrict__ valid,
-                         float* __restrict__ out, int T, int L, int N, int n_lanes,
-                         int t_w, int rows_p, float log_p_stay, float log_p_move) {
+__device__ __forceinline__ void kmer_constants(const KmerSource& src, const int* ids_r,
+                                               int N, int i, int p_lo, int kk, int code,
+                                               int b, float (&em)[K], float (&mu)[K],
+                                               float (&iv)[K]) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+        const int p = p_lo + j;
+        const int ids_p = ids_r[min(max(p, 0), N - 1)];
+        const int off = i - p;
+        const int w4 = (off >= 0 && off < K) ? 1 << (2 * (K - 1 - off)) : 0;
+        const int nid = min(max(ids_p + (b - code) * w4, 0), src.n_kmers - 1);
+        mu[j] = src.mu[nid];
+        iv[j] = src.iv[nid];
+        em[j] = (j < kk && ids_p >= 0) ? src.em[nid] : NADAVCA_NEG_INF;
+    }
+}
+
+// One (read, tile of 128 positions) of the local rescore, from the walk's
+// counts to the masked (R, L, 4) result (see the top of this file); SRC says
+// where the constants come from and which masks apply.
+template <int K, typename SRC>
+__device__ __forceinline__ void rescore_tile(const float* __restrict__ x,
+                                             const int* __restrict__ cnt,
+                                             const int* __restrict__ path,
+                                             const int* __restrict__ t_len,
+                                             const int* __restrict__ codes, const SRC& src,
+                                             float* __restrict__ out, int T, int L, int N,
+                                             int n_lanes, int t_w, float log_p_stay,
+                                             float log_p_move) {
+    constexpr bool TAB = std::is_same<SRC, TableSource>::value;
     // the staged samples: a slab, or the whole row and its repeated last sample
     __shared__ __align__(128) float slab[SLAB + MAX_TW];
     __shared__ __align__(8) unsigned long long bar;
     __shared__ int red[LOCAL_WARPS];
     __shared__ int base_s;
     // per position of the tile: slab offset, window length (0: masked), base
-    // code, table column; the positions by falling window length
-    __shared__ int s_off[LT], s_w[LT], s_code[LT], s_col[LT], s_perm[LT];
+    // code, table column (without tables: the first k-mer position p_lo), live
+    // slots; the positions by falling window length
+    __shared__ int s_off[LT], s_w[LT], s_code[LT], s_col[LT], s_kk[LT], s_perm[LT];
 
     const int r = blockIdx.y;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -181,9 +232,9 @@ rescore_local_tab_kernel(const float* __restrict__ x, const int* __restrict__ cn
     const int S_c = min(max(S, 0), T - 1);
     const int first_pos = path[(size_t)r * T];
     const int last_pos = path[(size_t)r * T + min(max(t_len[r] - 1, 0), T - 1)];
-    const int kk = min(ie, last_pos) - max(ic, first_pos) + 1;
+    const int p_lo = max(ic, first_pos);
+    const int kk = min(ie, last_pos) - p_lo + 1;
     const int code = codes[(size_t)r * L + i];
-    const int col = woff[r] + i;
 
     // ---- the tile's slab base: the block minimum of S_c
     int m = __reduce_min_sync(0xffffffffu, S_c);
@@ -214,15 +265,30 @@ rescore_local_tab_kernel(const float* __restrict__ x, const int* __restrict__ cn
     }
 
     // ---- masks, then the positions by falling window length (ties by
-    // position): warps of like windows, and the masked ones last
+    // position): warps of like windows, and the masked ones last. With
+    // tables a window clipped by the read's ends (kk < K) is masked and the
+    // genome's validity applies; without, such a window is scored on its kk
+    // live slots, and a live slot must hold a real k-mer (ids >= 0).
     const int off = S_c - base;
     if (rule && !(off >= 0 && off < SPAN)) W = 0;           // the span mask
-    const bool ok = kk > 0 && code < 4 && kk == K && valid[col] != 0 && W > 0;
+    bool ok = kk > 0 && code < 4 && W > 0;
+    int col;
+    if constexpr (TAB) {
+        col = src.woff[r] + i;
+        ok = ok && kk == K && src.valid[col] != 0;
+    } else {
+        col = p_lo;
+        const int* __restrict__ ids_r = src.ids + (size_t)r * N;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+            ok = ok && (j >= kk || ids_r[min(max(p_lo + j, 0), N - 1)] >= 0);
+    }
     const int w_ok = ok ? W : 0;
     s_off[tid] = off;
     s_w[tid] = w_ok;
     s_code[tid] = code;
     s_col[tid] = col;
+    s_kk[tid] = kk;
     __syncthreads();
     int rank = 0;
     for (int q = 0; q < LT; ++q) {
@@ -248,70 +314,57 @@ rescore_local_tab_kernel(const float* __restrict__ x, const int* __restrict__ cn
     // one a base; the reference base's value by a shuffle among the four,
     // every mask, the (R, L, 4) result stored in place
     const int b = lane & 3;
-    const size_t plane = (size_t)K * 4 * rows_p;
     for (int it = 0; it < GROUPS / LOCAL_WARPS; ++it) {
         const int g = (it & 1) ? (it + 1) * LOCAL_WARPS - 1 - warp : it * LOCAL_WARPS + warp;
         const int p = s_perm[g * GROUP + (lane >> 2)];
         const int w = s_w[p];
-        float o[1] = {0.0f};
+        float o = 0.0f;
         if (w > 0) {
-            float em[K][1], mu[K][1], iv[K][1];
+            float em[K], mu[K], iv[K];
+            if constexpr (TAB) {
+                const size_t plane = (size_t)K * 4 * src.rows_p;
 #pragma unroll
-            for (int j = 0; j < K; ++j) {
-                const size_t at = (size_t)(j * 4 + b) * rows_p + s_col[p];
-                em[j][0] = tab[at];
-                mu[j][0] = tab[plane + at];
-                iv[j][0] = tab[2 * plane + at];
+                for (int j = 0; j < K; ++j) {
+                    const size_t at = (size_t)(j * 4 + b) * src.rows_p + s_col[p];
+                    em[j] = src.tab[at];
+                    mu[j] = src.tab[plane + at];
+                    iv[j] = src.tab[2 * plane + at];
+                }
+            } else {
+                kmer_constants<K>(src, src.ids + (size_t)r * N, N, i0 + p, s_col[p],
+                                  s_kk[p], s_code[p], b, em, mu, iv);
             }
-            // kk == K at every position computed: its last slot
-            rescore_body<K, 1>(slab + s_off[p], 1, em, mu, iv, w, K - 1, log_p_stay,
-                               log_p_move, o);
+            // with tables kk == K at every position computed: its last slot
+            o = rescore_body<K>(slab + s_off[p], em, mu, iv, w, TAB ? K - 1 : s_kk[p] - 1,
+                                log_p_stay, log_p_move);
         }
         const int cod = min(max(s_code[p], 0), 3);
-        const float ref = __shfl_sync(0xffffffffu, o[0], (lane & ~3) | cod);
-        out[((size_t)r * L + i0 + p) * 4 + b] = w > 0 ? o[0] - ref : 0.0f;
+        const float ref = __shfl_sync(0xffffffffu, o, (lane & ~3) | cod);
+        out[((size_t)r * L + i0 + p) * 4 + b] = w > 0 ? o - ref : 0.0f;
     }
 }
 
 template <int K>
-__global__ void rescore_kernel(const float* __restrict__ xs,
-                               const float* __restrict__ em_a,
-                               const float* __restrict__ mu_a,
-                               const float* __restrict__ iv_a,
-                               const int* __restrict__ w,
-                               const int* __restrict__ kk,
-                               const int* __restrict__ codes,
-                               float* __restrict__ out,
-                               int R, int L, int t_w,
-                               float log_p_stay, float log_p_move) {
-    const size_t rl = (size_t)R * L;
-    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= rl) return;
-    float em[K][4], mu[K][4], iv[K][4];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            const size_t at = (size_t)(j * 4 + b) * rl + idx;
-            em[j][b] = em_a[at];
-            mu[j][b] = mu_a[at];
-            iv[j][b] = iv_a[at];
-        }
-    }
-    float o[4];
-    rescore_body<K, 4>(xs + idx, rl, em, mu, iv, min(w[idx], t_w), kk[idx] - 1,
-                       log_p_stay, log_p_move, o);
-    const int cod = codes[idx];
-    float ref = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-        if (cod == b) ref = o[b];
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) out[(size_t)b * rl + idx] = o[b] - ref;
+__global__ void __launch_bounds__(LOCAL_THREADS, 8)
+rescore_local_tab_kernel(const float* __restrict__ x, const int* __restrict__ cnt,
+                         const int* __restrict__ path, const int* __restrict__ t_len,
+                         const int* __restrict__ codes, TableSource src,
+                         float* __restrict__ out, int T, int L, int N, int n_lanes,
+                         int t_w, float log_p_stay, float log_p_move) {
+    rescore_tile<K>(x, cnt, path, t_len, codes, src, out, T, L, N, n_lanes, t_w,
+                    log_p_stay, log_p_move);
 }
 
-#define RESCORE_THREADS 128
+template <int K>
+__global__ void __launch_bounds__(LOCAL_THREADS, 8)
+rescore_local_kernel(const float* __restrict__ x, const int* __restrict__ cnt,
+                     const int* __restrict__ path, const int* __restrict__ t_len,
+                     const int* __restrict__ codes, KmerSource src,
+                     float* __restrict__ out, int T, int L, int N, int n_lanes, int t_w,
+                     float log_p_stay, float log_p_move) {
+    rescore_tile<K>(x, cnt, path, t_len, codes, src, out, T, L, N, n_lanes, t_w,
+                    log_p_stay, log_p_move);
+}
 
 // one instantiation per supported k-mer length
 #define RESCORE_DISPATCH(LAUNCH)                    \
@@ -327,6 +380,10 @@ __global__ void rescore_kernel(const float* __restrict__ xs,
         default: return (int)cudaErrorInvalidValue; \
     }
 
+static bool local_shape_ok(int T, int L, int N, int n_lanes, int t_w) {
+    return !(L % LT || T < 1 || N < 1 || n_lanes < N + 1 || t_w < 1 || t_w > MAX_TW);
+}
+
 // x (R, T); cnt (R, n_lanes) the walk's segment counts; path (R, T) and t_len
 // (R,) for the path's two ends; codes (R, L) the window's bases (4 = pad), L
 // a multiple of 128; woff (R,) the table column of each read's position 0;
@@ -340,32 +397,37 @@ NADAVCA_EXPORT int nadavca_rescore_local_tab(const float* x, const int* cnt,
                                              float log_p_stay, float log_p_move,
                                              void* stream) {
     if (R == 0 || L == 0) return 0;
-    if (L % LT || T < 1 || N < 1 || n_lanes < N + 1 || t_w < 1 || t_w > MAX_TW)
-        return (int)cudaErrorInvalidValue;
+    if (!local_shape_ok(T, L, N, n_lanes, t_w)) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)(L / LT), (unsigned)R);
+    const TableSource src{woff, tab, valid, rows_p};
 #define LAUNCH_LOCAL(KV)                                                          \
     rescore_local_tab_kernel<KV><<<grid, LOCAL_THREADS, 0, (cudaStream_t)stream>>>( \
-        x, cnt, path, t_len, codes, woff, tab, valid, out, T, L, N, n_lanes, t_w,   \
-        rows_p, log_p_stay, log_p_move)
+        x, cnt, path, t_len, codes, src, out, T, L, N, n_lanes, t_w, log_p_stay,    \
+        log_p_move)
     RESCORE_DISPATCH(LAUNCH_LOCAL)
 #undef LAUNCH_LOCAL
     return (int)cudaGetLastError();
 }
 
-NADAVCA_EXPORT int nadavca_rescore(const float* xs, const float* em,
-                                   const float* mu, const float* iv,
-                                   const int* w, const int* kk, const int* codes,
-                                   float* out, int R, int L, int t_w, int k,
-                                   float log_p_stay, float log_p_move,
-                                   void* stream) {
-    const size_t rl = (size_t)R * L;
-    if (rl == 0) return 0;
-    if (t_w < 1) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((rl + RESCORE_THREADS - 1) / RESCORE_THREADS);
-#define LAUNCH_ARR(KV)                                                      \
-    rescore_kernel<KV><<<blocks, RESCORE_THREADS, 0, (cudaStream_t)stream>>>( \
-        xs, em, mu, iv, w, kk, codes, out, R, L, t_w, log_p_stay, log_p_move)
-    RESCORE_DISPATCH(LAUNCH_ARR)
-#undef LAUNCH_ARR
+// The same without genome tables: ids (R, N) the window's k-mer ids (-1 for
+// none); em, mu, iv (n_kmers,) the per-k-mer constants. out (R, L, 4).
+NADAVCA_EXPORT int nadavca_rescore_local(const float* x, const int* cnt, const int* path,
+                                         const int* t_len, const int* codes,
+                                         const int* ids, const float* em, const float* mu,
+                                         const float* iv, float* out, int R, int T, int L,
+                                         int N, int n_lanes, int t_w, int k, int n_kmers,
+                                         float log_p_stay, float log_p_move,
+                                         void* stream) {
+    if (R == 0 || L == 0) return 0;
+    if (!local_shape_ok(T, L, N, n_lanes, t_w) || n_kmers < 1)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)(L / LT), (unsigned)R);
+    const KmerSource src{ids, em, mu, iv, n_kmers};
+#define LAUNCH_LOCAL(KV)                                                      \
+    rescore_local_kernel<KV><<<grid, LOCAL_THREADS, 0, (cudaStream_t)stream>>>( \
+        x, cnt, path, t_len, codes, src, out, T, L, N, n_lanes, t_w, log_p_stay, \
+        log_p_move)
+    RESCORE_DISPATCH(LAUNCH_LOCAL)
+#undef LAUNCH_LOCAL
     return (int)cudaGetLastError();
 }

@@ -75,7 +75,8 @@
 // launch of its own that wrote the chunk-major bands (22.8 MB at the main
 // shape) for the producers to read back once. The loads are the same in
 // number, contiguous in j, and the values the same floats, so nothing
-// rounds differently. (The two-sample fill still takes gathered bands.)
+// rounds differently. All three variants gather their own levels; no
+// standalone band gather is left in the port.
 //
 // Bands wider than one warp (W > 1). Slot j needs j-1 and j-2 only, never
 // j+1, so a chain warp depends on the warp to its left and on no other. The
@@ -116,10 +117,42 @@
 // skip S = 4 with W = B / 128, chosen by timing S = 4, W = 1 against S = 2,
 // W = 2 at B = 128 and S = 8, W = 1 against S = 4, W = 2 at B = 256; with
 // skip, whose sample is twice the instructions, S = 2 (W = B / 64) up to
-// B = 256, which beat S = 4 at both widths; above 256 S = 4 (PERF.md).
+// B = 256, which beat S = 4 at both widths; above 256 S = 4 (PERF.md). The
+// two-sample fill S = 2 up to B = 384 (W = B / 64), which beat S = 4 and
+// S = 8 at B = 128, 256 and 384; at 512 S = 4 (W = 4) beat S = 2 (W = 8)
+// (PERF.md).
 //
-// Both variants are one body, specialised at compile time: the program
-// without skip holds no skip code and no second plane.
+// The two-sample variant (viterbi_fill_pair_kernel) replaces the TPU's pair
+// body (pallas_dp.py:79, _pair_fill_body, taken by _fill_kernel at :272 under
+// dp_pair_step without skip). The nested recurrence over samples s, s+1
+//   V(s) = e1 + max(v + cs, v[j-1] + cm),  V(s+1) = e2 + max(V(s) + cs, V(s)[j-1] + cm)
+// regroups by the pair's total advance 0 / 1 / 2 into
+//   V(s+1) = e2 + max(v + K0, v[j-1] + K1, v[j-2] + K2),
+//   K0 = e1 + 2cs,  K1 = max(e1, e1[j-1]) + (cs + cm),  K2 = e1[j-1] + 2cm,
+// with e = em_const - (x - mu)^2 * inv2v; the per-sample bits come from the
+// winning advance (a = 2 both; a = 1 the second sample's if e1[j-1] > e1,
+// else the first's), the TPU's expressions in its order. The pair's first
+// sample's bit stands at the slot where the pair ends, so the walk does not
+// always retrace the optimal path: the TPU's defect, reproduced bit for bit
+// (ROADMAP.md, Queue 3). The first pair of a read is a free start and one
+// single step; a read that ends after a pair's first sample takes one single
+// step. On this layout a pair is one step of the chain: it reads v[j-1] and
+// v[j-2] as the skip sample does (two shuffles, two ring values per pair at a
+// warp edge), and computes the K from e1, e2 of its slots and e1[j-1], which
+// for the lane's slot 0 is the emission of slot j0 - 1: its producer gathers
+// S + 1 levels from j0 - 1 and hands e1, e2 and that edge over, HALF / 2
+// pairs a half-group, so the float is the left lane's (or the left warp's)
+// own. The K stay in the chain warp: the three emission rows of a pair are
+// what fits two buffers of a half-group in shared memory at B = 1024 (four
+// rows, K0, K1, K2 and e2, would take 256 KB). The port's first design gave
+// each read a block of B threads with a block barrier and a
+// shared-memory round trip per pair. It takes any band width that is a
+// multiple of 32: the last warp's lanes past the band run idle and are never
+// stored.
+//
+// The three variants are one body, specialised at compile time: the program
+// without skip holds no skip code and no second plane, the single-step ones
+// no pair code.
 //
 // Built with -fmad=false: see common.cuh.
 
@@ -222,6 +255,44 @@ struct EmitConst {
     float a[S], b[S], c[S];
 };
 
+// The transition constants of the two-sample step: the single-step ones and
+// the pair sums 2cs, cs + cm, 2cm, each summed in double on the host and
+// rounded to float once.
+struct PairK {
+    float cs, cm, cs2, csm, cm2;
+};
+
+// A pair producer's constants of one chunk: mu, em_const, inv2v of the lane's
+// S slots at 1 .. S and, at 0, of slot j0 - 1, whose first emission is e1[j-1]
+// of the lane's slot 0.
+template <int S>
+struct PairConst {
+    float mu[S + 1], em[S + 1], iv[S + 1];
+};
+
+// The emissions of one pair for the lane's slots into a pair row of the
+// table, em_const - (x - mu)^2 * inv2v: e1 (first sample) and e2 (second) of
+// the S slots, each a row of 32 * S, then e1 of slot j0 - 1 at [2 ROW + lane]
+// (NEG_INF left of slot 0, as the TPU shifts it in).
+template <int S>
+__device__ __forceinline__ void pair_emissions(const PairConst<S>& q, float x1, float x2,
+                                               bool left_end, int lane, float* row) {
+    constexpr int ROW = 32 * S;
+    float e1[S], e2[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        const float d1 = x1 - q.mu[k + 1];
+        e1[k] = q.em[k + 1] - (d1 * d1) * q.iv[k + 1];
+        const float d2 = x2 - q.mu[k + 1];
+        e2[k] = q.em[k + 1] - (d2 * d2) * q.iv[k + 1];
+    }
+    const float d0 = x1 - q.mu[0];
+    const float e1m0 = left_end ? NADAVCA_NEG_INF : q.em[0] - (d0 * d0) * q.iv[0];
+    store_slots<S>(row + lane * S, e1);
+    store_slots<S>(row + ROW + lane * S, e2);
+    row[2 * ROW + lane] = e1m0;
+}
+
 // The emissions of one sample for the lane's slots, into its row of the
 // table: without skip (c2p * x + c1p) * x + c0p, with skip
 // em_const - (x - mu)^2 * inv2v.
@@ -304,6 +375,83 @@ __device__ __forceinline__ void group_sample(Chain<SKIP, S>& q, const float (&em
         left2 = lane == 0 ? e2 : u2;
     }
     sample<SKIP, S>(q, emit, left1, left2, 1u << s, log_p_stay, p1, p2);
+}
+
+// One pair of samples (s, s + 1; s even, the bit of s in the group's word)
+// for the lane's slots, given their emissions: e1, e2 of the S slots, e1m0 =
+// e1 of slot j0 - 1. u: the pair in its half-group, whose ring row lane 31
+// feeds with v[S-1] and v[S-2] before the update (MULTI, with a right
+// neighbour). first: the read's first pair (a free start at s, one single
+// step to s + 1, the bit of s + 1 only); half: the read ends after s (one
+// single step, the bit of s only; with first, v = e1 and no bit). Otherwise
+// the regrouped step of the TPU's pair body, by total advance 0 / 1 / 2:
+//   V = e2 + max(v + K0, v[j-1] + K1, v[j-2] + K2),  K0 = e1 + 2cs,
+//   K1 = max(e1, e1[j-1]) + (cs + cm),  K2 = e1[j-1] + 2cm,
+// and the two bits from the winning advance (a = 1: b_dec = e1[j-1] > e1
+// picks which sample moved). Strict compares: the smaller advance wins a tie.
+template <int S, bool MULTI>
+__device__ __forceinline__ void pair_sample(Chain<false, S>& q, const float (&e1)[S],
+                                            const float (&e2)[S], float e1m0, int s, int u,
+                                            bool first, bool half, int lane, float e1g,
+                                            float e2g, bool feed, float* ring1,
+                                            float* ring2, const PairK& c) {
+    static_assert(S >= 2, "the pair step reads two slots to the left");
+    if (MULTI && feed) {
+        ring1[u] = q.v[S - 1];
+        ring2[u] = q.v[S - 2];
+    }
+    if (first) {
+#pragma unroll
+        for (int k = S - 1; k >= 0; --k) {
+            if (half) {
+                q.v[k] = e1[k];
+            } else {
+                const float e1m = k >= 1 ? e1[k >= 1 ? k - 1 : 0] : e1m0;
+                const float stay_f = e1[k] + c.cs;
+                const float move_f = e1m + c.cm;
+                if (move_f > stay_f) q.pk[k] |= 2u << s;
+                q.v[k] = e2[k] + fmaxf(stay_f, move_f);
+            }
+        }
+        return;
+    }
+    float l1 = NADAVCA_NEG_INF, l2 = NADAVCA_NEG_INF;
+    if (MULTI) {
+        l1 = __shfl_sync(FULL_MASK, e1g, u);
+        l2 = __shfl_sync(FULL_MASK, e2g, u);
+    }
+    const float u1 = __shfl_up_sync(FULL_MASK, q.v[S - 1], 1);
+    const float u2 = __shfl_up_sync(FULL_MASK, q.v[S - 2], 1);
+    const float left1 = lane == 0 ? l1 : u1;
+    const float left2 = lane == 0 ? l2 : u2;
+#pragma unroll
+    for (int k = S - 1; k >= 0; --k) {
+        const int k1 = k >= 1 ? k - 1 : 0;
+        const int k2 = k >= 2 ? k - 2 : 0;
+        const float vm1 = k >= 1 ? q.v[k1] : left1;
+        if (half) {
+            const float stay_h = q.v[k] + c.cs;
+            const float move_h = vm1 + c.cm;
+            if (move_h > stay_h) q.pk[k] |= 1u << s;
+            q.v[k] = e1[k] + fmaxf(stay_h, move_h);
+        } else {
+            const float vm2 = k >= 2 ? q.v[k2] : (k == 1 ? left1 : left2);
+            const float e1m = k >= 1 ? e1[k1] : e1m0;
+            const float K0 = e1[k] + c.cs2;
+            const bool b_dec = e1m > e1[k];
+            const float K1 = fmaxf(e1[k], e1m) + c.csm;
+            const float K2 = e1m + c.cm2;
+            const float c0 = q.v[k] + K0;
+            const float c1 = vm1 + K1;
+            const float c2 = vm2 + K2;
+            const bool a1best = c1 > c0;
+            const float m01 = fmaxf(c0, c1);
+            const bool a2best = c2 > m01;
+            q.v[k] = e2[k] + fmaxf(m01, c2);
+            if (a2best || (a1best && b_dec)) q.pk[k] |= 2u << s;
+            if (a2best || (a1best && !b_dec)) q.pk[k] |= 1u << s;
+        }
+    }
 }
 
 // The band levels of the lane's slots in one chunk, from the read's rows of
@@ -403,6 +551,80 @@ __device__ __forceinline__ void produce(const float* __restrict__ xr,
     }
 }
 
+// The producer warp of one chain warp of the two-sample fill: as produce,
+// with the pair's emissions (pair_emissions) of HALF / 2 pairs a half-group,
+// a pair row of PROW = 2 ROW + 32 floats each. It gathers the levels of S + 1
+// slots a chunk, from j0 - 1, so that e1[j-1] of the lane's slot 0 is its own
+// and the same float as the left lane's (or the left warp's) e1.
+template <int S>
+__device__ __forceinline__ void produce_pair(const float* __restrict__ xr,
+                                             const float* __restrict__ mu_r,
+                                             const float* __restrict__ sg_r,
+                                             const int* __restrict__ lo_r, int T, int C,
+                                             int N, int j0, int lane, int tl, int nr,
+                                             float* tab, int* made, const int* used) {
+    constexpr int M = S + 1;
+    constexpr int PROW = 64 * S + 32;
+    constexpr int PAIRS = HALF / 2;
+    const int n_chunks = T / C;
+    float mu_n[M], sg_n[M];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+        mu_n[k] = 0.0f;
+        sg_n[k] = 1.0f;
+    }
+    if (tl > 0) load_band<M>(mu_r, sg_r, lo_r[0] + j0 - 1, N, mu_n, sg_n);
+    float xg_n = tl > 0 ? xr[lane] : 0.0f;
+    for (int c = 0; c < n_chunks; ++c) {
+        const int t0 = c * C;
+        const int n_act = min(tl - t0, C);
+        if (n_act <= 0) break;              // and so are the chunks after it
+        PairConst<S> q;
+        const int lo_c = lo_r[c];
+#pragma unroll
+        for (int k = 0; k < M; ++k) {
+            const float sg = sg_n[k];
+            q.mu[k] = mu_n[k];
+            q.em[k] = (lo_c + j0 - 1 + k < nr) ? (-logf(sg) - NADAVCA_HALF_LOG_2PI)
+                                               : NADAVCA_NEG_INF;
+            q.iv[k] = 0.5f / (sg * sg);
+        }
+        if (t0 + C < tl) load_band<M>(mu_r, sg_r, lo_r[c + 1] + j0 - 1, N, mu_n, sg_n);
+        const int n_groups = (n_act + 31) >> 5;
+        for (int g = 0; g < n_groups; ++g) {
+            const int G = c * (C >> 5) + g;
+            const float xg = xg_n;
+            if ((G + 1) * 32 < tl) xg_n = xr[(G + 1) * 32 + lane];
+            const int n = min(32, n_act - 32 * g);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int nh = min(HALF, n - HALF * half);
+                if (nh <= 0) break;
+                const int h = 2 * G + half;
+                while (load_acquire(used) < h - 1) {
+                }
+                float* dst = tab + (h & 1) * PAIRS * PROW;
+                if (nh == HALF) {
+#pragma unroll
+                    for (int u = 0; u < PAIRS; ++u)
+                        pair_emissions<S>(q, __shfl_sync(FULL_MASK, xg, HALF * half + 2 * u),
+                                          __shfl_sync(FULL_MASK, xg, HALF * half + 2 * u + 1),
+                                          j0 == 0, lane, dst + u * PROW);
+                } else {
+#pragma unroll 1
+                    for (int u = 0; u < (nh + 1) >> 1; ++u)
+                        pair_emissions<S>(q, __shfl_sync(FULL_MASK, xg, HALF * half + 2 * u),
+                                          __shfl_sync(FULL_MASK, xg, HALF * half + 2 * u + 1),
+                                          j0 == 0, lane, dst + u * PROW);
+                }
+                __threadfence_block();
+                __syncwarp();
+                if (lane == 0) store_release(made, h + 1);
+            }
+        }
+    }
+}
+
 // One half-group h = 2G + half of a chain warp: n samples (HALF when FULL)
 // from bit s0 of word row G. Waits for the left warp's edges of the half
 // (MULTI), for room in its own ring, and for the producer's emissions; then
@@ -465,19 +687,99 @@ __device__ __forceinline__ void chain_half(Chain<SKIP, S>& q, int h, int s0, int
     if (MULTI && lane == 31) store_release(done + w, h + 1);
 }
 
+// The two-sample counterpart of chain_half: the half-group's n samples as
+// (n + 1) / 2 pairs, the last a half pair when n is odd. The ring row of a
+// half carries two edge values per pair (v[S-1] and v[S-2] of lane 31).
+template <int S, bool MULTI, bool FULL>
+__device__ __forceinline__ void pair_half(Chain<false, S>& q, int h, int s0, int n,
+                                          bool first_group, int w, int W, int lane,
+                                          const float* tab, const int* made, int* used,
+                                          int* done, float* ring, const PairK& c) {
+    constexpr int ROW = 32 * S;
+    constexpr int PROW = 2 * ROW + 32;
+    constexpr int PAIRS = HALF / 2;
+    const bool feed = MULTI && w + 1 < W && lane == 31;
+    float e1g = NADAVCA_NEG_INF, e2g = NADAVCA_NEG_INF;
+    float* ring1 = nullptr;
+    float* ring2 = nullptr;
+    if (MULTI) {
+        const int slot = h % RING_HALVES;
+        if (w > 0) {
+            while (load_acquire(done + w - 1) <= h) {
+            }
+            const float* in = ring + ((size_t)((w - 1) * RING_HALVES + slot) * 2) * HALF;
+            e1g = in[lane & (HALF - 1)];
+            e2g = in[HALF + (lane & (HALF - 1))];
+        }
+        if (w + 1 < W) {
+            // the right neighbour must have read this ring slot
+            while (h >= RING_HALVES && load_acquire(done + w + 1) <= h - RING_HALVES) {
+            }
+            ring1 = ring + ((size_t)(w * RING_HALVES + slot) * 2) * HALF;
+            ring2 = ring1 + HALF;
+        }
+    }
+    while (load_acquire(made) <= h) {
+    }
+    const float* src = tab + (h & 1) * PAIRS * PROW;
+    if constexpr (FULL) {
+        float a_n[S], b_n[S];
+        load_slots<S>(src + lane * S, a_n);
+        load_slots<S>(src + ROW + lane * S, b_n);
+        float m_n = src[2 * ROW + lane];
+#pragma unroll
+        for (int u = 0; u < PAIRS; ++u) {
+            float e1[S], e2[S];
+#pragma unroll
+            for (int k = 0; k < S; ++k) {
+                e1[k] = a_n[k];
+                e2[k] = b_n[k];
+            }
+            const float e1m0 = m_n;
+            if (u + 1 < PAIRS) {
+                const float* nx = src + (u + 1) * PROW;
+                load_slots<S>(nx + lane * S, a_n);
+                load_slots<S>(nx + ROW + lane * S, b_n);
+                m_n = nx[2 * ROW + lane];
+            }
+            pair_sample<S, MULTI>(q, e1, e2, e1m0, s0 + 2 * u, u, false, false, lane, e1g,
+                                  e2g, feed, ring1, ring2, c);
+        }
+    } else {
+#pragma unroll 1
+        for (int u = 0; u < (n + 1) >> 1; ++u) {
+            const float* at = src + u * PROW;
+            float e1[S], e2[S];
+            load_slots<S>(at + lane * S, e1);
+            load_slots<S>(at + ROW + lane * S, e2);
+            pair_sample<S, MULTI>(q, e1, e2, at[2 * ROW + lane], s0 + 2 * u, u,
+                                  first_group && s0 + 2 * u == 0, 2 * u + 1 >= n, lane,
+                                  e1g, e2g, feed, ring1, ring2, c);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) store_release(used, h + 1);
+    if (MULTI && lane == 31) store_release(done + w, h + 1);
+}
+
+
 // A chain warp: the recurrence over its slots, the realign and the
-// renormalisation, the decision words.
-template <bool SKIP, int S, bool MULTI>
+// renormalisation, the decision words. B is the band's width; a lane whose
+// slots lie at or past it (the last warp of a band that is not a multiple of
+// 32 * S, two-sample fill only) runs with the others, and its slots are never
+// read by a live one, enter no row maximum and are not stored.
+template <bool SKIP, bool PAIR, int S, bool MULTI>
 __device__ __forceinline__ void chain(const int* __restrict__ delta_r,
                                       int* __restrict__ dec, int* __restrict__ dec2,
                                       float* __restrict__ v_out,
                                       float* __restrict__ acc_out, int R, int T, int C,
                                       int B, int r, int w, int W, int lane, int j0, int tl,
-                                      float log_p_stay, float p1, float p2,
+                                      float log_p_stay, float p1, float p2, const PairK& pc,
                                       const float* tab, const int* made, int* used,
                                       float* row, float* red, int* done, float* ring) {
     const int n_chunks = T / C;
     const int gpc = C >> 5;                 // groups (decision words) per chunk
+    const bool live = j0 < B;               // B is a multiple of 32, S divides 32
 
     Chain<SKIP, S> q;
 #pragma unroll
@@ -513,30 +815,44 @@ __device__ __forceinline__ void chain(const int* __restrict__ delta_r,
             const int n = min(32, n_act - 32 * g);
             if (n == 32 && G > 0) {
 #pragma unroll
-                for (int half = 0; half < 2; ++half)
-                    chain_half<SKIP, S, MULTI, true>(q, 2 * G + half, HALF * half, HALF,
-                                                     false, w, W, lane, tab, made, used,
-                                                     done, ring, log_p_stay, p1, p2);
+                for (int half = 0; half < 2; ++half) {
+                    if constexpr (PAIR)
+                        pair_half<S, MULTI, true>(q, 2 * G + half, HALF * half, HALF, false,
+                                                  w, W, lane, tab, made, used, done, ring,
+                                                  pc);
+                    else
+                        chain_half<SKIP, S, MULTI, true>(q, 2 * G + half, HALF * half, HALF,
+                                                         false, w, W, lane, tab, made, used,
+                                                         done, ring, log_p_stay, p1, p2);
+                }
             } else {
                 // the read's first group (free start) and its last, partial one
                 for (int half = 0; half < 2; ++half) {
                     const int nh = min(HALF, n - HALF * half);
                     if (nh <= 0) break;
-                    chain_half<SKIP, S, MULTI, false>(q, 2 * G + half, HALF * half, nh,
-                                                      G == 0, w, W, lane, tab, made, used,
-                                                      done, ring, log_p_stay, p1, p2);
+                    if constexpr (PAIR)
+                        pair_half<S, MULTI, false>(q, 2 * G + half, HALF * half, nh, G == 0,
+                                                   w, W, lane, tab, made, used, done, ring,
+                                                   pc);
+                    else
+                        chain_half<SKIP, S, MULTI, false>(q, 2 * G + half, HALF * half, nh,
+                                                          G == 0, w, W, lane, tab, made,
+                                                          used, done, ring, log_p_stay, p1,
+                                                          p2);
                 }
             }
             const size_t off = ((size_t)G * R + r) * B + j0;
-            store_slots<S>(dec + off, q.pk);
-            if constexpr (SKIP) store_slots<S>(dec2 + off, q.pk2);
+            if (live) {
+                store_slots<S>(dec + off, q.pk);
+                if constexpr (SKIP) store_slots<S>(dec2 + off, q.pk2);
+            }
 #pragma unroll
             for (int k = 0; k < S; ++k) {
                 q.pk[k] = 0u;
                 if constexpr (SKIP) q.pk2[k] = 0u;
             }
         }
-        for (int g = n_groups; g < gpc; ++g) {
+        for (int g = n_groups; g < gpc && live; ++g) {
             const size_t off = ((size_t)(c * gpc + g) * R + r) * B + j0;
             const unsigned zero[S] = {};
             store_slots<S>(dec + off, zero);
@@ -547,6 +863,8 @@ __device__ __forceinline__ void chain(const int* __restrict__ delta_r,
         float m = q.v[0];
 #pragma unroll
         for (int k = 1; k < S; ++k) m = fmaxf(m, q.v[k]);
+        // a slot past the band: NEG_INF changes no maximum that is kept
+        if (!live) m = NADAVCA_NEG_INF;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
@@ -561,13 +879,20 @@ __device__ __forceinline__ void chain(const int* __restrict__ delta_r,
         for (int k = 0; k < S; ++k) q.v[k] = q.v[k] - m;
         acc = acc + m;
     }
-    store_slots<S>(v_out + (size_t)r * B + j0, q.v);
+    if (live) store_slots<S>(v_out + (size_t)r * B + j0, q.v);
     if (j0 == 0) acc_out[r] = acc;
 }
 
-// A read's block: W = B / (32 * S) chain warps (warps 0 .. W-1), then one
-// producer warp for each (warps W .. 2W-1).
-template <bool SKIP, int S, bool MULTI>
+// Floats of one chain warp's table: two buffers of a half-group, HALF sample
+// rows of 32 * S emissions, or HALF / 2 pair rows of 64 * S + 32.
+template <bool PAIR, int S>
+__host__ __device__ constexpr int table_floats() {
+    return PAIR ? HALF * (64 * S + 32) : 2 * HALF * 32 * S;
+}
+
+// A read's block: W = ceil(B / (32 * S)) chain warps (warps 0 .. W-1), then
+// one producer warp for each (warps W .. 2W-1).
+template <bool SKIP, bool PAIR, int S, bool MULTI>
 __device__ __forceinline__ void fill_body(const float* __restrict__ x,
                                           const int* __restrict__ t_len,
                                           const float* __restrict__ mu,
@@ -580,20 +905,20 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
                                           float* __restrict__ v_out,
                                           float* __restrict__ acc_out,
                                           int R, int T, int C, int B, int N,
-                                          float log_p_stay, float p1, float p2) {
-    constexpr int PLANES = SKIP ? 2 : 1;
-    constexpr int ROW = 32 * S;
+                                          float log_p_stay, float p1, float p2,
+                                          const PairK& pc) {
+    constexpr int RING_PLANES = SKIP || PAIR ? 2 : 1;
     extern __shared__ __align__(16) float smem[];
-    const int W = B / (32 * S);
-    float* row = smem;                                      // B: the realign
-    float* red = row + B;                                   // row maxima of the warps
+    const int W = (B + 32 * S - 1) / (32 * S);
+    float* row = smem;                                      // 32 * S * W: the realign
+    float* red = row + 32 * S * W;                          // row maxima of the warps
     int* done = reinterpret_cast<int*>(red + MAX_WARPS);    // groups done, per warp
     int* made = done + MAX_WARPS;                           // halves produced
     int* used = made + MAX_WARPS;                           // halves consumed
     float* ring = reinterpret_cast<float*>(used + MAX_WARPS);
-    // ring: [warp][RING_HALVES][PLANES][HALF] edge values (MULTI only); then
-    // the tables, [warp][2 buffers][HALF samples][32 lanes * S], 16-byte aligned
-    float* table = ring + (MULTI ? (size_t)W * RING_HALVES * PLANES * HALF : 0);
+    // ring: [warp][RING_HALVES][RING_PLANES][HALF] edge values (MULTI only);
+    // then the tables, [warp][table_floats], 16-byte aligned
+    float* table = ring + (MULTI ? (size_t)W * RING_HALVES * RING_PLANES * HALF : 0);
 
     const int r = blockIdx.x;
     const int lane = threadIdx.x & 31;
@@ -602,7 +927,8 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
     const int j0 = (w * 32 + lane) * S;
     const int tl = t_len[r];
     const int n_chunks = T / C;
-    float* tab = table + (size_t)w * 2 * HALF * ROW + lane * S;
+    // a producer's own slots (the pair producer places its lanes itself)
+    float* tab = table + (size_t)w * table_floats<PAIR, S>() + (PAIR ? 0 : lane * S);
     if (threadIdx.x < MAX_WARPS) {
         done[threadIdx.x] = 0;
         made[threadIdx.x] = 0;
@@ -610,14 +936,19 @@ __device__ __forceinline__ void fill_body(const float* __restrict__ x,
     }
     __syncthreads();
     if (wid >= W) {
-        produce<SKIP, S>(x + (size_t)r * T, mu + (size_t)r * N, sigma + (size_t)r * N,
-                         lo + (size_t)r * n_chunks, T, C, N, j0, lane, tl, n_ref[r],
-                         log_p_stay, tab, made + w, used + w);
+        if constexpr (PAIR)
+            produce_pair<S>(x + (size_t)r * T, mu + (size_t)r * N, sigma + (size_t)r * N,
+                            lo + (size_t)r * n_chunks, T, C, N, j0, lane, tl, n_ref[r], tab,
+                            made + w, used + w);
+        else
+            produce<SKIP, S>(x + (size_t)r * T, mu + (size_t)r * N, sigma + (size_t)r * N,
+                             lo + (size_t)r * n_chunks, T, C, N, j0, lane, tl, n_ref[r],
+                             log_p_stay, tab, made + w, used + w);
         return;
     }
-    chain<SKIP, S, MULTI>(delta + (size_t)r * n_chunks, dec, dec2, v_out, acc_out, R, T, C,
-                          B, r, w, W, lane, j0, tl, log_p_stay, p1, p2, tab, made + w,
-                          used + w, row, red, done, ring);
+    chain<SKIP, PAIR, S, MULTI>(delta + (size_t)r * n_chunks, dec, dec2, v_out, acc_out, R,
+                                T, C, B, r, w, W, lane, j0, tl, log_p_stay, p1, p2, pc, tab,
+                                made + w, used + w, row, red, done, ring);
 }
 
 template <int S, bool MULTI>
@@ -628,8 +959,9 @@ viterbi_fill_kernel(const float* __restrict__ x, const int* __restrict__ t_len,
                     const int* __restrict__ n_ref, int* __restrict__ dec,
                     float* __restrict__ v_out, float* __restrict__ acc_out,
                     int R, int T, int C, int B, int N, float log_p_stay, float dcs) {
-    fill_body<false, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, nullptr,
-                               v_out, acc_out, R, T, C, B, N, log_p_stay, dcs, 0.0f);
+    fill_body<false, false, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, nullptr,
+                                      v_out, acc_out, R, T, C, B, N, log_p_stay, dcs, 0.0f,
+                                      PairK{});
 }
 
 template <int S, bool MULTI>
@@ -641,27 +973,50 @@ viterbi_fill_skip_kernel(const float* __restrict__ x, const int* __restrict__ t_
                          int* __restrict__ dec2, float* __restrict__ v_out,
                          float* __restrict__ acc_out, int R, int T, int C, int B, int N,
                          float log_p_stay, float log_p_move, float log_p_skip) {
-    fill_body<true, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, dec2, v_out,
-                              acc_out, R, T, C, B, N, log_p_stay, log_p_move, log_p_skip);
+    fill_body<true, false, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, dec2,
+                                     v_out, acc_out, R, T, C, B, N, log_p_stay, log_p_move,
+                                     log_p_skip, PairK{});
 }
 
-// The fixed (S, W) table: S slots per lane, W = B / (32 * S) chain warps.
-// Without skip S = 4; with skip, whose sample is twice the instructions,
-// S = 2 up to B = 256. Above 256 S = 4 (W = B / 128, at most 8).
-int slots_per_lane(int B, bool skip) {
-    return skip && B <= 256 ? 2 : 4;
+template <int S, bool MULTI>
+__global__ void __launch_bounds__(64 * MAX_WARPS, 1)
+viterbi_fill_pair_kernel(const float* __restrict__ x, const int* __restrict__ t_len,
+                         const float* __restrict__ mu, const float* __restrict__ sigma,
+                         const int* __restrict__ lo, const int* __restrict__ delta,
+                         const int* __restrict__ n_ref, int* __restrict__ dec,
+                         float* __restrict__ v_out, float* __restrict__ acc_out,
+                         int R, int T, int C, int B, int N, PairK pc) {
+    fill_body<false, true, S, MULTI>(x, t_len, mu, sigma, lo, delta, n_ref, dec, nullptr,
+                                     v_out, acc_out, R, T, C, B, N, pc.cs, pc.cm, 0.0f, pc);
 }
 
-bool fill_shape_ok(int C, int B, int T, int S) {
+enum Variant { SINGLE = 0, SKIPPING = 1, PAIRED = 2 };
+
+// The fixed (S, W) table: S slots per lane, W = ceil(B / (32 * S)) chain
+// warps. Without skip S = 4; with skip, whose sample is twice the
+// instructions, S = 2 up to B = 256, above it S = 4 (W = B / 128, at most 8);
+// the two-sample fill S = 2 up to B = 384, then S = 4.
+int slots_per_lane(int B, int variant) {
+    if (variant == PAIRED) return B <= 384 ? 2 : 4;
+    return variant == SKIPPING && B <= 256 ? 2 : 4;
+}
+
+// Band widths: the single-step fills take multiples of 32 * S; the
+// two-sample fill any multiple of 32 (its last warp's lanes past the band
+// run idle), as its first design did.
+bool fill_shape_ok(int C, int B, int T, int S, int variant) {
     if (!(S == 2 || S == 4 || S == 8)) return false;
-    if (B <= 0 || B > 1024 || B % (32 * S) != 0 || B / (32 * S) > MAX_WARPS) return false;
+    if (B <= 0 || B > 1024 || B % 32 != 0) return false;
+    if (variant != PAIRED && B % (32 * S) != 0) return false;
+    if ((B + 32 * S - 1) / (32 * S) > MAX_WARPS) return false;
     return !((C & 31) || C <= 0 || T % C);
 }
 
-size_t fill_shmem(int B, int W, bool skip) {
-    const size_t ring = W > 1 ? (size_t)W * RING_HALVES * (skip ? 2 : 1) * HALF : 0;
-    const size_t tables = (size_t)W * 2 * HALF * (B / W);
-    return (B + 4 * MAX_WARPS + ring + tables) * sizeof(float);
+template <bool PAIR, int S>
+size_t fill_shmem(int W, bool skip) {
+    const size_t ring = W > 1 ? (size_t)W * RING_HALVES * (skip || PAIR ? 2 : 1) * HALF : 0;
+    const size_t tables = (size_t)W * table_floats<PAIR, S>();
+    return (32 * S * W + 4 * MAX_WARPS + ring + tables) * sizeof(float);
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel.
@@ -679,7 +1034,7 @@ int launch_fill(const float* x, const int* t_len, const float* mu, const float* 
                 float* v_out, float* acc_out, int R, int T, int C, int B, int N,
                 float log_p_stay, float dcs, cudaStream_t stream) {
     const int W = B / (32 * S);
-    const size_t shmem = fill_shmem(B, W, false);
+    const size_t shmem = fill_shmem<false, S>(W, false);
     if (W > 1) {
         if (cudaError_t e = allow_shmem(viterbi_fill_kernel<S, true>, shmem)) return (int)e;
         viterbi_fill_kernel<S, true><<<R, 64 * W, shmem, stream>>>(
@@ -699,7 +1054,7 @@ int launch_fill_skip(const float* x, const int* t_len, const float* mu,
                      float* acc_out, int R, int T, int C, int B, int N, float log_p_stay,
                      float log_p_move, float log_p_skip, cudaStream_t stream) {
     const int W = B / (32 * S);
-    const size_t shmem = fill_shmem(B, W, true);
+    const size_t shmem = fill_shmem<false, S>(W, true);
     if (W > 1) {
         if (cudaError_t e = allow_shmem(viterbi_fill_skip_kernel<S, true>, shmem))
             return (int)e;
@@ -716,12 +1071,34 @@ int launch_fill_skip(const float* x, const int* t_len, const float* mu,
     return (int)cudaGetLastError();
 }
 
+template <int S>
+int launch_fill_pair(const float* x, const int* t_len, const float* mu,
+                     const float* sigma, const int* lo, const int* delta,
+                     const int* n_ref, int* dec, float* v_out, float* acc_out, int R,
+                     int T, int C, int B, int N, const PairK& pc, cudaStream_t stream) {
+    const int W = (B + 32 * S - 1) / (32 * S);
+    const size_t shmem = fill_shmem<true, S>(W, false);
+    if (W > 1) {
+        if (cudaError_t e = allow_shmem(viterbi_fill_pair_kernel<S, true>, shmem))
+            return (int)e;
+        viterbi_fill_pair_kernel<S, true><<<R, 64 * W, shmem, stream>>>(
+            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N, pc);
+    } else {
+        if (cudaError_t e = allow_shmem(viterbi_fill_pair_kernel<S, false>, shmem))
+            return (int)e;
+        viterbi_fill_pair_kernel<S, false><<<R, 64, shmem, stream>>>(
+            NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N, pc);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The table's S for band width B (the wrapper reports it; cuda_dp.fill_layout
+// The table's S for band width B and variant (0 the single-step fill, 1 with
+// skip, 2 the two-sample fill; the wrapper reports it, cuda_dp.fill_layout
 // mirrors it).
-NADAVCA_EXPORT int nadavca_fill_slots_per_lane(int B, int skip) {
-    return slots_per_lane(B, skip != 0);
+NADAVCA_EXPORT int nadavca_fill_slots_per_lane(int B, int variant) {
+    return slots_per_lane(B, variant);
 }
 
 // The fill at an explicit S (2, 4 or 8 slots per lane, W = B / (32 * S) warps
@@ -737,7 +1114,7 @@ NADAVCA_EXPORT int nadavca_viterbi_fill_layout(const float* x, const int* t_len,
                                                float log_p_stay, float dcs, int S,
                                                void* stream) {
     if (R == 0) return 0;
-    if (!fill_shape_ok(C, B, T, S) || N < 1) return (int)cudaErrorInvalidValue;
+    if (!fill_shape_ok(C, B, T, S, SINGLE) || N < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     switch (S) {
     case 2: return launch_fill<2>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B, N,
@@ -759,7 +1136,7 @@ NADAVCA_EXPORT int nadavca_viterbi_fill_skip_layout(const float* x, const int* t
                                                     float log_p_skip, int S,
                                                     void* stream) {
     if (R == 0) return 0;
-    if (!fill_shape_ok(C, B, T, S) || N < 1) return (int)cudaErrorInvalidValue;
+    if (!fill_shape_ok(C, B, T, S, SKIPPING) || N < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     switch (S) {
     case 2: return launch_fill_skip<2>(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out, R,
@@ -772,6 +1149,31 @@ NADAVCA_EXPORT int nadavca_viterbi_fill_skip_layout(const float* x, const int* t
     }
 }
 
+// The two-sample fill at an explicit S, W = ceil(B / (32 * S)) <= 8. cs, cm:
+// log_p_stay, log_p_move; cs2, csm, cm2 their pair sums.
+NADAVCA_EXPORT int nadavca_viterbi_fill_pair_layout(const float* x, const int* t_len,
+                                                    const float* mu, const float* sigma,
+                                                    const int* lo, const int* delta,
+                                                    const int* n_ref, int* dec,
+                                                    float* v_out, float* acc_out,
+                                                    int R, int T, int C, int B, int N,
+                                                    float cs, float cm, float cs2,
+                                                    float csm, float cm2, int S,
+                                                    void* stream) {
+    if (R == 0) return 0;
+    if (!fill_shape_ok(C, B, T, S, PAIRED) || N < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const PairK pc{cs, cm, cs2, csm, cm2};
+    switch (S) {
+    case 2: return launch_fill_pair<2>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+                                       N, pc, st);
+    case 4: return launch_fill_pair<4>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C, B,
+                                       N, pc, st);
+    default: return launch_fill_pair<8>(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C,
+                                        B, N, pc, st);
+    }
+}
+
 NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
                                         const float* mu, const float* sigma,
                                         const int* lo, const int* delta,
@@ -781,7 +1183,7 @@ NADAVCA_EXPORT int nadavca_viterbi_fill(const float* x, const int* t_len,
                                         float log_p_stay, float dcs,
                                         void* stream) {
     return nadavca_viterbi_fill_layout(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T, C,
-                                       B, N, log_p_stay, dcs, slots_per_lane(B, false),
+                                       B, N, log_p_stay, dcs, slots_per_lane(B, SINGLE),
                                        stream);
 }
 
@@ -795,5 +1197,23 @@ NADAVCA_EXPORT int nadavca_viterbi_fill_skip(const float* x, const int* t_len,
                                              float log_p_skip, void* stream) {
     return nadavca_viterbi_fill_skip_layout(NADAVCA_FILL_ARGS, dec, dec2, v_out, acc_out,
                                             R, T, C, B, N, log_p_stay, log_p_move,
-                                            log_p_skip, slots_per_lane(B, true), stream);
+                                            log_p_skip, slots_per_lane(B, SKIPPING), stream);
+}
+
+NADAVCA_EXPORT int nadavca_viterbi_fill_pair(const float* x, const int* t_len,
+                                             const float* mu, const float* sigma,
+                                             const int* lo, const int* delta,
+                                             const int* n_ref, int* dec,
+                                             float* v_out, float* acc_out,
+                                             int R, int T, int C, int B, int N,
+                                             float cs, float cm, float cs2, float csm,
+                                             float cm2, void* stream) {
+    return nadavca_viterbi_fill_pair_layout(NADAVCA_FILL_ARGS, dec, v_out, acc_out, R, T,
+                                            C, B, N, cs, cm, cs2, csm, cm2,
+                                            slots_per_lane(B, PAIRED), stream);
+}
+
+// The message of a CUDA error code, for the wrappers' exceptions.
+NADAVCA_EXPORT const char* nadavca_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
 }

@@ -5,18 +5,19 @@ variant of one that is a program of its own, has a hand-written CUDA kernel
 under ``csrc/`` and, beside its wrapper here, a plain PyTorch version with the
 same contract:
 
-  ``band_gather``        csrc/band_gather.cu        ``band_gather_plain`` (and
-                                                    folded into the two fills
-                                                    below, counted in
-                                                    ``band_gather_folded``)
   ``viterbi_fill``       csrc/viterbi_fill.cu       ``band_gather_plain`` +
                                                     ``viterbi_fill_plain``
   ``viterbi_fill_skip``  csrc/viterbi_fill.cu       the same (``use_skip``)
-  ``viterbi_fill_pair``  csrc/viterbi_fill_pair.cu  ``viterbi_fill_pair_plain``
+  ``viterbi_fill_pair``  csrc/viterbi_fill.cu       ``band_gather_plain`` +
+                                                    ``viterbi_fill_pair_plain``
   ``backtrack``          csrc/backtrack.cu          ``backtrack_plain``
   ``backtrack_skip``     csrc/backtrack.cu          ``backtrack_plain`` (two planes)
   ``path_counts``        csrc/backtrack.cu          ``path_counts_plain`` (the walk's
                                                     counts, emitted by either walk)
+
+The TPU's band gather (``band_gather_pallas``) runs inside the three fills,
+in their producer warps (counted in ``band_gather_folded``); its plain
+version is ``band_gather_plain``.
 
 A wrapper checks its arguments, then looks at where the tensors lie: on the
 CPU it runs the plain version; on a CUDA device it launches the kernel on the
@@ -83,7 +84,13 @@ def _on(device):
 
 # --------------------------------------------------------------- band gather
 def band_gather_plain(mu, sigma, lo, band_width: int):
-    """Plain version of :func:`band_gather`."""
+    """Chunk-major band levels: ``out[c, r, j] = mu[r, lo[r, c] + j]``.
+
+    mu, sigma (R, N) f32; lo (R, n_chunks) i32 with lo >= 0. Positions at or
+    beyond N read the pad values (mu 0, sigma 1). Returns two (n_chunks, R, B)
+    f32 tensors — the contract of ``band_gather_pallas``. The kernels gather
+    the same values in the fills' producer warps; this is their plain
+    version."""
     R, N = mu.shape
     B = band_width
     idx = lo.to(torch.int64)[:, :, None] + torch.arange(
@@ -97,41 +104,6 @@ def band_gather_plain(mu, sigma, lo, band_width: int):
     return mu_b.transpose(0, 1).contiguous(), sg_b.transpose(0, 1).contiguous()
 
 
-def band_gather(mu: torch.Tensor, sigma: torch.Tensor, lo: torch.Tensor,
-                band_width: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunk-major band levels: ``out[c, r, j] = mu[r, lo[r, c] + j]``.
-
-    mu, sigma (R, N) f32; lo (R, n_chunks) i32 with lo >= 0. Positions at or
-    beyond N read the pad values (mu 0, sigma 1). Returns two (n_chunks, R, B)
-    f32 tensors — the contract of ``band_gather_pallas``.
-    """
-    dev = mu.device
-    R, N = mu.shape
-    _check("mu", mu, torch.float32, (R, N), dev)
-    _check("sigma", sigma, torch.float32, (R, N), dev)
-    if lo.dim() != 2:
-        raise ValueError(f"lo: expected (R, n_chunks), got {tuple(lo.shape)}")
-    n_chunks = lo.shape[1]
-    _check("lo", lo, torch.int32, (R, n_chunks), dev)
-    B = int(band_width)
-    if dev.type == "cpu":
-        return band_gather_plain(mu, sigma, lo, B)
-    if dev.type != "cuda":
-        raise ValueError(f"band_gather: unsupported device {dev}")
-    lib = kernel_build.load_library()
-    mu_b, sg_b = torch.empty((2, n_chunks, R, B), dtype=torch.float32, device=dev)
-    with _on(dev):
-        code = lib.nadavca_band_gather(
-            mu.data_ptr(), sigma.data_ptr(), lo.data_ptr(),
-            mu_b.data_ptr(), sg_b.data_ptr(), R, N, n_chunks, B, _stream(dev))
-    kernel_build.check_launch(lib, code, "band_gather")
-    band_gather.launches += 1
-    return mu_b, sg_b
-
-
-band_gather.launches = 0
-
-
 class _Epilogue:
     """The launch count of work that runs inside another kernel's launch."""
 
@@ -140,9 +112,9 @@ class _Epilogue:
         self.launches = 0
 
 
-# the band gather done by the producer warps of the single-step fills (K1b of
-# the TPU package, folded into K1 / K7a): one count per fill that gathered its
-# own band levels. The standalone ``band_gather`` counts only its own launches.
+# the band gather done by the producer warps of the fills (K1b of the TPU
+# package, folded into K1, K7a and K7b): one count per fill launch, each of
+# which gathers its own band levels
 band_gather_folded = _Epilogue("band_gather_folded")
 
 
@@ -343,19 +315,24 @@ def viterbi_fill_pair_plain(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
     return st.decs, st.v, st.acc
 
 
-def fill_layout(band_width: int, use_skip: bool = False) -> Tuple[int, int]:
-    """(S, W) of the single-step fill kernel for a band of ``band_width``
-    slots, without or with skip: S slots per lane, W chain warps per read
-    (each with a producer warp beside it). The table is ``slots_per_lane`` in
-    ``csrc/viterbi_fill.cu``, which the kernels use; this is its copy."""
-    S = 2 if use_skip and band_width <= 256 else 4
-    return S, band_width // (32 * S)
+def fill_layout(band_width: int, use_skip: bool = False,
+                pair_step: bool = False) -> Tuple[int, int]:
+    """(S, W) of the fill kernel for a band of ``band_width`` slots: the
+    single-step fill without or with skip, or with ``pair_step`` the
+    two-sample fill. S slots per lane, W chain warps per read (each with a
+    producer warp beside it; the two-sample fill's last warp may reach past
+    the band). The table is ``slots_per_lane`` in ``csrc/viterbi_fill.cu``,
+    which the kernels use; this is its copy."""
+    if pair_step:
+        S = 2 if band_width <= 384 else 4
+    else:
+        S = 2 if use_skip and band_width <= 256 else 4
+    return S, -(-band_width // (32 * S))
 
 
-def _fill_prologue(name, x, t_len, mu, sigma, lo, delta, n_ref, cfg, bands=False):
-    """Argument checks shared by the three fill wrappers: the level rows mu,
-    sigma (R, N), or with ``bands`` the gathered (n_chunks, R, B) band levels.
-    Returns (R, T, C, B)."""
+def _fill_prologue(name, x, t_len, mu, sigma, lo, delta, n_ref, cfg):
+    """Argument checks shared by the three fill wrappers, the level rows mu,
+    sigma (R, N) among them. Returns (R, T, C, B)."""
     _check_fill_cfg(cfg)
     dev = x.device
     if x.dim() != 2:
@@ -368,14 +345,10 @@ def _fill_prologue(name, x, t_len, mu, sigma, lo, delta, n_ref, cfg, bands=False
     _check("x", x, torch.float32, (R, T), dev)
     _check("t_len", t_len, torch.int32, (R,), dev)
     _check("n_ref", n_ref, torch.int32, (R,), dev)
-    if bands:
-        _check("mu_band", mu, torch.float32, (n_chunks, R, B), dev)
-        _check("sigma_band", sigma, torch.float32, (n_chunks, R, B), dev)
-    else:
-        if mu.dim() != 2 or mu.shape[1] < 1:
-            raise ValueError(f"mu: expected (R, N) with N >= 1, got {tuple(mu.shape)}")
-        _check("mu", mu, torch.float32, (R, mu.shape[1]), dev)
-        _check("sigma", sigma, torch.float32, (R, mu.shape[1]), dev)
+    if mu.dim() != 2 or mu.shape[1] < 1:
+        raise ValueError(f"mu: expected (R, N) with N >= 1, got {tuple(mu.shape)}")
+    _check("mu", mu, torch.float32, (R, mu.shape[1]), dev)
+    _check("sigma", sigma, torch.float32, (R, mu.shape[1]), dev)
     _check("lo", lo, torch.int32, (R, n_chunks), dev)
     _check("delta", delta, torch.int32, (R, n_chunks), dev)
     if dev.type not in ("cpu", "cuda"):
@@ -413,16 +386,14 @@ def viterbi_fill(x: torch.Tensor, t_len: torch.Tensor, mu: torch.Tensor,
     ``band_gather_pallas`` followed by ``viterbi_fill_pallas``.
 
     ``cfg.use_skip`` goes to :func:`viterbi_fill_skip`, ``cfg.dp_pair_step``
-    (without skip) to :func:`band_gather` and :func:`viterbi_fill_pair`; what
-    is launched and counted here is the single-step kernel without skip.
+    (without skip) to :func:`viterbi_fill_pair`; what is launched and counted
+    here is the single-step kernel without skip.
     """
     args = (x, t_len, mu, sigma, lo, delta, n_ref, cfg)
     if cfg.use_skip:
         return viterbi_fill_skip(*args)
     if cfg.dp_pair_step:
-        _fill_prologue("viterbi_fill", *args)
-        mu_b, sg_b = band_gather(mu, sigma, lo, cfg.band_width)
-        return viterbi_fill_pair(x, t_len, mu_b, sg_b, lo, delta, n_ref, cfg)
+        return viterbi_fill_pair(*args)
     return _fill_rows("viterbi_fill", viterbi_fill, 1, *args)
 
 
@@ -431,18 +402,25 @@ viterbi_fill.launches = 0
 
 def _fill_rows(name, wrapper, n_planes, x, t_len, mu, sigma, lo, delta, n_ref,
                cfg: AlignConfig):
-    """The body of :func:`viterbi_fill` and :func:`viterbi_fill_skip`."""
+    """The body of the three fill wrappers."""
     R, T, C, B = _fill_prologue(name, x, t_len, mu, sigma, lo, delta, n_ref, cfg)
     dev = x.device
+    pair = name == "viterbi_fill_pair"
     if dev.type == "cpu":
         mu_b, sg_b = band_gather_plain(mu, sigma, lo, B)
-        return viterbi_fill_plain(x, t_len, mu_b, sg_b, lo, delta, n_ref, cfg)
+        plain = viterbi_fill_pair_plain if pair else viterbi_fill_plain
+        return plain(x, t_len, mu_b, sg_b, lo, delta, n_ref, cfg)
     lib = kernel_build.load_library()
     decs, v_out, acc = _fill_outputs(R, T, B, dev, n_planes)
-    if n_planes == 2:
-        consts = (float(cfg.log_p_stay), float(cfg.log_p_move), float(cfg.log_p_skip))
+    cs, cm = cfg.log_p_stay, cfg.log_p_move
+    if pair:
+        # the pair sums in double, rounded to float32 once, as the plain
+        # version's Python floats are
+        consts = (float(cs), float(cm), float(cs + cs), float(cs + cm), float(cm + cm))
+    elif n_planes == 2:
+        consts = (float(cs), float(cm), float(cfg.log_p_skip))
     else:
-        consts = (float(cfg.log_p_stay), float(cfg.log_p_move - cfg.log_p_stay))
+        consts = (float(cs), float(cm - cs))
     with _on(dev):
         code = getattr(lib, "nadavca_" + name)(
             x.data_ptr(), t_len.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
@@ -469,35 +447,19 @@ def viterbi_fill_skip(x, t_len, mu, sigma, lo, delta, n_ref, cfg: AlignConfig):
 viterbi_fill_skip.launches = 0
 
 
-def viterbi_fill_pair(x, t_len, mu_band, sigma_band, lo, delta, n_ref,
-                      cfg: AlignConfig):
-    """The fill without skip, two samples per serial step, on gathered band
-    levels: mu_band, sigma_band (n_chunks, R, B) f32 from :func:`band_gather`,
-    the other arguments as :func:`viterbi_fill`; returns ((plane,), V, acc).
-    Scores agree with the single-step fill to float32 rounding; near-tie
-    decisions can differ, because the regrouped sums round differently."""
-    args = (x, t_len, mu_band, sigma_band, lo, delta, n_ref, cfg)
+def viterbi_fill_pair(x, t_len, mu, sigma, lo, delta, n_ref, cfg: AlignConfig):
+    """The fill without skip, two samples per serial step (``dp_pair_step``):
+    arguments as :func:`viterbi_fill`, the level rows included; the kernel
+    gathers its band levels itself, on the CPU :func:`band_gather_plain` and
+    :func:`viterbi_fill_pair_plain` run. Returns ((plane,), V, acc). Scores
+    agree with the single-step fill to float32 rounding; near-tie decisions
+    can differ, because the regrouped sums round differently, and the bit of
+    a pair's first sample stands where the pair ends (the TPU body's, kept).
+    On CUDA tensors the band width is any multiple of 32 up to 1024."""
     if cfg.use_skip:
         raise ValueError("viterbi_fill_pair has no skip transition")
-    R, T, C, B = _fill_prologue("viterbi_fill_pair", *args, bands=True)
-    dev = x.device
-    if dev.type == "cpu":
-        return viterbi_fill_pair_plain(*args)
-    lib = kernel_build.load_library()
-    decs, v_out, acc = _fill_outputs(R, T, B, dev, 1)
-    cs, cm = cfg.log_p_stay, cfg.log_p_move
-    with _on(dev):
-        # the pair constants are summed in double and rounded to float32 once,
-        # as the plain version's Python floats are
-        code = lib.nadavca_viterbi_fill_pair(
-            x.data_ptr(), t_len.data_ptr(), mu_band.data_ptr(),
-            sigma_band.data_ptr(), lo.data_ptr(), delta.data_ptr(),
-            n_ref.data_ptr(), decs[0].data_ptr(), v_out.data_ptr(),
-            acc.data_ptr(), R, T, C, B, float(cs), float(cm),
-            float(cs + cs), float(cs + cm), float(cm + cm), _stream(dev))
-    kernel_build.check_launch(lib, code, "viterbi_fill_pair")
-    viterbi_fill_pair.launches += 1
-    return decs, v_out, acc
+    return _fill_rows("viterbi_fill_pair", viterbi_fill_pair, 1, x, t_len, mu, sigma,
+                      lo, delta, n_ref, cfg)
 
 
 viterbi_fill_pair.launches = 0
@@ -654,8 +616,8 @@ def backtrack_skip(decs, lo, delta, j_end, chunk_size: int,
 
 backtrack_skip.launches = 0
 
-KERNELS = (band_gather, viterbi_fill, backtrack, viterbi_fill_skip,
-           viterbi_fill_pair, backtrack_skip, path_counts)
+KERNELS = (viterbi_fill, backtrack, viterbi_fill_skip, viterbi_fill_pair,
+           backtrack_skip, path_counts)
 # every launch count: the kernels', and that of the band gather folded into
 # the fills
 COUNTERS = KERNELS + (band_gather_folded,)

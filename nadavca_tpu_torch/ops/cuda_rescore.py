@@ -4,17 +4,20 @@ Counterpart of ``nadavca_tpu/ops/pallas_rescore.py``. Each TPU kernel has a
 hand-written CUDA kernel under ``csrc/`` and, beside its wrapper here, a plain
 PyTorch version with the same contract:
 
-  ``shear_gather``       csrc/shear_gather.cu   plain: ``shear_gather_plain``
   ``rescore_local_tab``  csrc/rescore.cu        plain: ``rescore_local_tab_plain``
-  ``rescore_fill``       csrc/rescore.cu        plain: ``rescore_fill_plain``
+  ``rescore_local``      csrc/rescore.cu        plain: ``rescore_local_plain``
 
 ``rescore_local_tab`` is the TPU's tables rescore (K5) with the shear gather
 (K4) and the tensor code around them folded in: from the walk's counts to the
 masked (R, L, 4) result in one launch. Its plain version is the composition
 it replaces (``local_windows`` → ``span_ok`` → ``shear_gather_plain`` →
 ``rescore_fill_tab_plain``, the plain version of the TPU's K5 on its own
-contract, → masks). ``shear_gather`` and ``rescore_fill`` serve the path
-without genome tables.
+contract, → masks). ``rescore_local`` is the same for the path without genome
+tables: the TPU's K6 with K4 and the no-tables tensor code folded in; its
+plain version is ``local_windows`` → ``shear_gather_plain`` →
+``batch_constants`` → ``rescore_fill_plain`` (the plain version of K6 on its
+own contract) → masks. K4 thus runs inside both kernels (counted in
+``shear_gather_folded``); ``shear_gather_plain`` is its plain version.
 
 As in ``ops/cuda_dp``: a wrapper checks its arguments, runs the plain version
 on CPU tensors, launches the kernel on CUDA tensors or raises, never falls
@@ -25,10 +28,8 @@ that makes the path (``ops/cuda_dp.backtrack`` with ``t_len`` and
 ``n_lanes``, ``csrc/backtrack.cu``); their plain version is
 ``cuda_dp.path_counts_plain``.
 
-``base_loglik_local_cuda`` strings them together: with genome tables one
-``rescore_local_tab``; without, segment counts (from the walk) → window
-bounds and per-batch constants (plain tensor code, as it is XLA code in the
-JAX package) → per-position sample windows (K4) → the local DP (K6).
+``base_loglik_local_cuda`` picks one of the two: with genome tables
+``rescore_local_tab``, without ``rescore_local``.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 from ..config import AlignConfig
 from ..utils import kernel_build
 from .banded_dp import NEG_INF
-from .cuda_dp import _check, _on, _stream, path_counts_plain
+from .cuda_dp import _check, _Epilogue, _on, _stream, path_counts_plain
 from .subst_tables import SubstTables
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -97,7 +98,16 @@ def _check_shear(x, S, t_w: int, span: int, slab: bool):
 
 
 def shear_gather_plain(x, S, t_w: int, span: int = SPAN, slab: bool = True):
-    """Plain version of :func:`shear_gather`."""
+    """``xs[s, r, i] = x[r, S[r, i] + s]`` — (t_w, R, L) f32, exact.
+
+    x (R, T) f32; S (R, L) i32 with 0 <= S. With ``slab`` (the contract of
+    ``shear_gather_pallas``): per (read, 128-position tile) the aligned base
+    is :func:`shear_slab_base`; an element whose ``S - base`` lies outside
+    [0, span) comes out 0.0 (the caller masks such positions), everything
+    else is exact; needs T >= span + 256, L a multiple of 128 and t_w <= 256.
+    Without ``slab`` the index ``S + s`` is clamped to [0, T - 1] and nothing
+    is zeroed. The kernels gather the same samples inside the rescore tile
+    kernels; this is their plain version."""
     _check_shear(x, S, t_w, span, slab)
     R, T = x.shape
     L = S.shape[1]
@@ -110,42 +120,9 @@ def shear_gather_plain(x, S, t_w: int, span: int = SPAN, slab: bool = True):
     return xs.permute(2, 0, 1).contiguous()
 
 
-def shear_gather(x: torch.Tensor, S: torch.Tensor, t_w: int, span: int = SPAN,
-                 slab: bool = True) -> torch.Tensor:
-    """``xs[s, r, i] = x[r, S[r, i] + s]`` — (t_w, R, L) f32, exact.
-
-    x (R, T) f32; S (R, L) i32 with 0 <= S. With ``slab`` (the contract of
-    ``shear_gather_pallas``): per (read, 128-position tile) the aligned base
-    is :func:`shear_slab_base`; an element whose ``S - base`` lies outside
-    [0, span) comes out 0.0 (the caller masks such positions), everything
-    else is exact; needs T >= span + 256, L a multiple of 128 and t_w <= 256.
-    Without ``slab`` the index ``S + s`` is clamped to [0, T - 1] and nothing
-    is zeroed.
-    """
-    dev = x.device
-    t_w, span = int(t_w), int(span)
-    _check_shear(x, S, t_w, span, slab)
-    R, T = x.shape
-    L = S.shape[1]
-    _check("x", x, torch.float32, (R, T), dev)
-    _check("S", S, torch.int32, (R, L), dev)
-    if dev.type == "cpu":
-        return shear_gather_plain(x, S, t_w, span, slab)
-    if dev.type != "cuda":
-        raise ValueError(f"shear_gather: unsupported device {dev}")
-    lib = kernel_build.load_library()
-    base = shear_slab_base(S, T, span).contiguous() if slab else None
-    xs = torch.empty((t_w, R, L), dtype=torch.float32, device=dev)
-    with _on(dev):
-        code = lib.nadavca_shear_gather(
-            x.data_ptr(), S.data_ptr(), base.data_ptr() if slab else None,
-            xs.data_ptr(), R, T, L, t_w, span, LT, _stream(dev))
-    kernel_build.check_launch(lib, code, "shear_gather")
-    shear_gather.launches += 1
-    return xs
-
-
-shear_gather.launches = 0
+# the shear gather (K4 of the TPU package) done inside the two rescore tile
+# kernels: one count per launch of either
+shear_gather_folded = _Epilogue("shear_gather_folded")
 
 
 # ------------------------------------------------------------------- rescore
@@ -219,7 +196,7 @@ def _check_tab(woff, tab, R: int, L: int, k: int, dev, woff_range=None):
 def rescore_fill_tab_plain(xs, w, kk, codes, woff, tab, cfg: AlignConfig, t_w: int):
     """The local DP with constants read from the genome table, on gathered
     samples — the contract of ``rescore_fill_tab_pallas``: xs (t_w, R, L) f32
-    from :func:`shear_gather`; w, kk, codes (R, L) i32 (window length, live
+    from :func:`shear_gather_plain`; w, kk, codes (R, L) i32 (window length, live
     slots, reference base 0..3); woff (R,) i32 table column of each read's
     first window position; tab (3, k*4, rows_p) f32 the stacked [em, mu, iv]
     of ``SubstTables``. Returns (4, R, L) f32 scores per base minus the
@@ -234,43 +211,16 @@ def rescore_fill_tab_plain(xs, w, kk, codes, woff, tab, cfg: AlignConfig, t_w: i
 
 
 def rescore_fill_plain(xs, em, mu, iv, w, kk, codes, cfg: AlignConfig, t_w: int):
-    """Plain version of :func:`rescore_fill`."""
-    return _rescore_plain(xs, em, mu, iv, w, kk, codes, cfg.k, cfg, t_w)
-
-
-def rescore_fill(xs: torch.Tensor, em: torch.Tensor, mu: torch.Tensor,
-                 iv: torch.Tensor, w: torch.Tensor, kk: torch.Tensor,
-                 codes: torch.Tensor, cfg: AlignConfig, t_w: int) -> torch.Tensor:
-    """The local DP with constants passed per batch.
-
-    As :func:`rescore_fill_tab_plain`, with em, mu, iv (k*4, R, L) f32 (row
+    """The local DP with constants passed per batch, on gathered samples —
+    the contract of ``rescore_fill_pallas`` (K6 on its own): as
+    :func:`rescore_fill_tab_plain`, with em, mu, iv (k*4, R, L) f32 (row
     ``j*4 + b`` is slot j, base b; ``em`` is NEG_INF at dead slots) in place
-    of the table — the contract of ``rescore_fill_pallas``.
-    """
+    of the table. The card runs this inside :func:`rescore_local`."""
     k = cfg.k
     R, L, dev = _check_rescore(xs, w, kk, codes, t_w)
     for name, t in (("em", em), ("mu", mu), ("iv", iv)):
         _check(name, t, torch.float32, (4 * k, R, L), dev)
-    if dev.type == "cpu":
-        return rescore_fill_plain(xs, em, mu, iv, w, kk, codes, cfg, t_w)
-    if dev.type != "cuda":
-        raise ValueError(f"rescore_fill: unsupported device {dev}")
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
-    lib = kernel_build.load_library()
-    out = torch.empty((4, R, L), dtype=torch.float32, device=dev)
-    with _on(dev):
-        code = lib.nadavca_rescore(
-            xs.data_ptr(), em.data_ptr(), mu.data_ptr(), iv.data_ptr(),
-            w.data_ptr(), kk.data_ptr(), codes.data_ptr(), out.data_ptr(),
-            R, L, t_w, k, float(cfg.log_p_stay), float(cfg.log_p_move),
-            _stream(dev))
-    kernel_build.check_launch(lib, code, "rescore_fill")
-    rescore_fill.launches += 1
-    return out
-
-
-rescore_fill.launches = 0
+    return _rescore_plain(xs, em, mu, iv, w, kk, codes, k, cfg, t_w)
 
 
 # ---------------------------------------------------------- the local rescore
@@ -326,6 +276,14 @@ def local_windows(path, t_len, window_codes, N: int, k: int, t_w: int,
     return S, W, kk, p_lo, valid_i
 
 
+def kmer_constants(level_mean, level_std):
+    """The three per-k-mer vectors of the constants: emission constant
+    ``-log(sigma) - log(2 pi) / 2``, mean, and ``0.5 / sigma^2``, by the
+    expressions :func:`batch_constants` applies to the gathered levels (an
+    element-wise operation gives the same float before a gather as after)."""
+    return -torch.log(level_std) - _HALF_LOG_2PI, level_mean, 0.5 / (level_std * level_std)
+
+
 def batch_constants(p_lo, kk, window_codes, ids, level_mean, level_std, k: int):
     """Per-batch substituted levels for K6: em, mu, iv (k*4, R, L) f32 and
     the (R, L) mask of positions all of whose live slots hold a real k-mer."""
@@ -362,10 +320,9 @@ def batch_constants(p_lo, kk, window_codes, ids, level_mean, level_std, k: int):
     return to_kernel_layout(em), to_kernel_layout(mu_s), to_kernel_layout(iv), slots_ok
 
 
-def _window_xs(x, S, W, t_w: int, gather=shear_gather):
+def _window_xs(x, S, W, t_w: int):
     """The sample windows of the positions and the span mask: (xs (t_w, R, L),
-    W with the span-masked positions set to 0), by ``gather`` (the kernel's
-    wrapper, or its plain version). Where T >= 2048 + 256 the
+    W with the span-masked positions set to 0). Where T >= 2048 + 256 the
     samples are gathered under the slab rule, and a position whose window
     start lies 2048 samples or more beyond its tile's aligned base gets W = 0;
     below that T there is no mask and sample indices clamp to T - 1."""
@@ -374,11 +331,12 @@ def _window_xs(x, S, W, t_w: int, gather=shear_gather):
     slab = T >= SPAN + 256
     if slab:
         W = torch.where(span_ok(S_c, T), W, torch.zeros_like(W))
-    return gather(x, S_c, t_w, span=SPAN, slab=slab), W.contiguous()
+    return shear_gather_plain(x, S_c, t_w, span=SPAN, slab=slab), W.contiguous()
 
 
-def _check_local_tab(x, path, t_len, cnt, window_codes, woff, tab, valid, N, k, t_w,
-                     woff_range):
+def _check_local(x, path, t_len, cnt, window_codes, N, t_w):
+    """Checks shared by the two rescore tile kernels' wrappers. Returns
+    (R, T, L)."""
     if x.dim() != 2 or window_codes.dim() != 2:
         raise ValueError(f"x (R, T) and window_codes (R, L) expected, got "
                          f"{tuple(x.shape)} and {tuple(window_codes.shape)}")
@@ -397,8 +355,6 @@ def _check_local_tab(x, path, t_len, cnt, window_codes, woff, tab, valid, N, k, 
     _check("window_codes", window_codes, torch.int32, (R, L), dev)
     if cnt is not None:
         _check("cnt", cnt, torch.int32, (R, count_lanes(N)), dev)
-    rows_p = _check_tab(woff, tab, R, L, k, dev, woff_range)
-    _check("valid", valid, torch.bool, (rows_p,), dev)
     return R, T, L
 
 
@@ -409,7 +365,7 @@ def rescore_local_tab_plain(x, path, t_len, cnt, window_codes, woff, tab, valid,
     k = cfg.k
     L = window_codes.shape[1]
     S, W, kk, _, valid_i = local_windows(path, t_len, window_codes, N, k, t_w, cnt)
-    xs, W = _window_xs(x, S, W, t_w, gather=shear_gather_plain)
+    xs, W = _window_xs(x, S, W, t_w)
     scores = rescore_fill_tab_plain(xs, W, kk, window_codes.clamp(0, 3), woff, tab,
                                     cfg, t_w)                      # (4, R, L)
     # read-local edge positions (clipped windows) are masked: kk == k required
@@ -445,9 +401,10 @@ def rescore_local_tab(x: torch.Tensor, path: torch.Tensor, t_len: torch.Tensor,
     wrapper reading them back from the card.
     """
     k, t_w, N = cfg.k, int(t_w), int(N)
-    R, T, L = _check_local_tab(x, path, t_len, cnt, window_codes, woff, tab, valid,
-                               N, k, t_w, woff_range)
+    R, T, L = _check_local(x, path, t_len, cnt, window_codes, N, t_w)
     dev = x.device
+    rows_p = _check_tab(woff, tab, R, L, k, dev, woff_range)
+    _check("valid", valid, torch.bool, (rows_p,), dev)
     if dev.type == "cpu":
         return rescore_local_tab_plain(x, path, t_len, cnt, window_codes, woff, tab,
                                        valid, N, cfg, t_w)
@@ -469,12 +426,91 @@ def rescore_local_tab(x: torch.Tensor, path: torch.Tensor, t_len: torch.Tensor,
             tab.shape[2], float(cfg.log_p_stay), float(cfg.log_p_move), _stream(dev))
     kernel_build.check_launch(lib, code, "rescore_local_tab")
     rescore_local_tab.launches += 1
+    shear_gather_folded.launches += 1
     return out
 
 
 rescore_local_tab.launches = 0
 
-KERNELS = (shear_gather, rescore_local_tab, rescore_fill)
+
+def rescore_local_plain(x, path, t_len, cnt, window_codes, ids, level_mean, level_std,
+                        cfg: AlignConfig, t_w: int):
+    """Plain version of :func:`rescore_local`: the composition it replaces."""
+    k = cfg.k
+    N = ids.shape[1]
+    S, W, kk, p_lo, valid_i = local_windows(path, t_len, window_codes, N, k, t_w, cnt)
+    xs, W = _window_xs(x, S, W, t_w)
+    em, mu, iv, slots_ok = batch_constants(p_lo, kk, window_codes, ids, level_mean,
+                                           level_std, k)
+    scores = rescore_fill_plain(xs, em, mu, iv, W, kk.contiguous(),
+                                window_codes.clamp(0, 3), cfg, t_w)     # (4, R, L)
+    all_ok = valid_i & (W > 0) & slots_ok
+    out = scores.permute(1, 2, 0)                                      # (R, L, 4)
+    return torch.where(all_ok[:, :, None], out, torch.zeros_like(out)).contiguous()
+
+
+def rescore_local(x: torch.Tensor, path: torch.Tensor, t_len: torch.Tensor,
+                  cnt: Optional[torch.Tensor], window_codes: torch.Tensor,
+                  ids: torch.Tensor, level_mean: torch.Tensor, level_std: torch.Tensor,
+                  cfg: AlignConfig, t_w: int) -> torch.Tensor:
+    """The local rescore without genome tables, from the walk's counts to the
+    masked base log-likelihoods, in one launch.
+
+    x, path, t_len, cnt, window_codes, t_w as :func:`rescore_local_tab`; ids
+    (R, N) i32 the window's k-mer ids (-1 for none); level_mean, level_std
+    (n_kmers,) f32 the k-mer model. Each position is scored with the
+    substituted k-mers' levels; a window clipped by the read's ends (kk < k)
+    is scored on its kk live slots, as the ``scan`` twin does. Returns (R, L,
+    4) f32, 0 where the position is masked — not a real base, a live slot
+    without a real k-mer, an empty window, or (from T = 2304 on) a window
+    start 2048 samples or more beyond its 128-position tile's slab base. The
+    no-tables branch of ``base_loglik_local_pallas``: the TPU's K4 and K6
+    with the tensor code around them. The three per-k-mer vectors of
+    :func:`kmer_constants` are made here, once per call; the kernel gathers
+    from them.
+    """
+    k, t_w = cfg.k, int(t_w)
+    if ids.dim() != 2 or level_mean.dim() != 1 or level_mean.shape[0] < 1:
+        raise ValueError(f"ids (R, N) and level_mean (n_kmers,) expected, got "
+                         f"{tuple(ids.shape)} and {tuple(level_mean.shape)}")
+    N = ids.shape[1]
+    R, T, L = _check_local(x, path, t_len, cnt, window_codes, N, t_w)
+    dev = x.device
+    _check("ids", ids, torch.int32, (R, N), dev)
+    _check("level_mean", level_mean, torch.float32, level_mean.shape, dev)
+    _check("level_std", level_std, torch.float32, level_mean.shape, dev)
+    if dev.type == "cpu":
+        return rescore_local_plain(x, path, t_len, cnt, window_codes, ids, level_mean,
+                                   level_std, cfg, t_w)
+    if dev.type != "cuda":
+        raise ValueError(f"rescore_local: unsupported device {dev}")
+    if cnt is None:
+        raise ValueError("rescore_local: on a CUDA device the segment counts come "
+                         "from the walk (cuda_dp.backtrack with t_len and n_lanes)")
+    if k > MAX_K:
+        raise ValueError(f"k={k}: the rescore kernel is built for k <= {MAX_K}")
+    if level_mean.shape[0] < 4 ** k:
+        raise ValueError(f"level_mean holds {level_mean.shape[0]} k-mers, k={k} "
+                         f"needs {4 ** k}")
+    em_k, mu_k, iv_k = (v.contiguous() for v in kmer_constants(level_mean, level_std))
+    lib = kernel_build.load_library()
+    out = torch.empty((R, L, 4), dtype=torch.float32, device=dev)
+    with _on(dev):
+        code = lib.nadavca_rescore_local(
+            x.data_ptr(), cnt.data_ptr(), path.data_ptr(), t_len.data_ptr(),
+            window_codes.data_ptr(), ids.data_ptr(), em_k.data_ptr(), mu_k.data_ptr(),
+            iv_k.data_ptr(), out.data_ptr(), R, T, L, N, cnt.shape[1], t_w, k,
+            level_mean.shape[0], float(cfg.log_p_stay), float(cfg.log_p_move),
+            _stream(dev))
+    kernel_build.check_launch(lib, code, "rescore_local")
+    rescore_local.launches += 1
+    shear_gather_folded.launches += 1
+    return out
+
+
+rescore_local.launches = 0
+
+KERNELS = (rescore_local_tab, rescore_local, shear_gather_folded)
 
 
 def reset_launches() -> None:
@@ -504,8 +540,8 @@ def base_loglik_local_cuda(
     With ``tables`` the whole rescore is one :func:`rescore_local_tab`
     (the TPU's K4 and K5 and the tensor code around them): positions whose
     window is clipped by the read's ends (``kk < k``) or invalid in the genome
-    are masked to exactly 0. Without, the constants are built per batch (K6
-    on the samples K4 gathers) and edge positions are scored like the
+    are masked to exactly 0. Without, it is one :func:`rescore_local` (K4 and
+    K6 and their tensor code), and edge positions are scored like the
     ``scan`` twin's.
 
     ``cnt`` are the path's segment counts as the walk emitted them (see
@@ -537,13 +573,6 @@ def base_loglik_local_cuda(
                                 cfg, t_w, woff_range=window_off_range)
         return out if L == L_in else out[:, :L_in, :].contiguous()
 
-    S, W, kk, p_lo, valid_i = local_windows(path, t_len, window_codes, N, k, t_w,
-                                            cnt)
-    xs, W = _window_xs(x, S, W, t_w)                              # (t_w, R, L)
-    em, mu, iv, slots_ok = batch_constants(p_lo, kk, window_codes, ids,
-                                           level_mean, level_std, k)
-    scores = rescore_fill(xs, em, mu, iv, W, kk, window_codes.clamp(0, 3), cfg, t_w)
-    all_ok = valid_i & (W > 0) & slots_ok
-    out = scores.permute(1, 2, 0)                                # (R, L, 4)
-    out = torch.where(all_ok[:, :, None], out, torch.zeros_like(out))
-    return out[:, :L_in, :].contiguous()
+    out = rescore_local(x, path, t_len, cnt, window_codes, ids, level_mean, level_std,
+                        cfg, t_w)
+    return out if L == L_in else out[:, :L_in, :].contiguous()

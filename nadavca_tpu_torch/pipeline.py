@@ -331,9 +331,8 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
                 backend: str, device="cuda", subst=None) -> dict:
     """Put everything ``device_compute`` consumes on ``device``.
 
-    Band levels are sliced on the device (by the fill's producer warps, or
-    ``cuda_dp.band_gather`` for the two-sample fill), so no (n_chunks, R, B)
-    band array crosses the host-device link. ``subst``
+    Band levels are sliced on the device (by the fills' producer warps), so
+    no (n_chunks, R, B) band array crosses the host-device link. ``subst``
     (``ops.subst_tables.SubstTables`` of the genome, already on ``device``) is
     used by the kernel backend's local rescore only; the per-read table
     offsets are computed here and checked against the table's tail pad.

@@ -6,7 +6,8 @@ reference C++ loop's shape), the band is *piecewise constant over signal
 chunks* of C samples and jumps by Δ ≥ 0 at chunk boundaries. Within a chunk
 the band does not move, so the fill kernel's inner loop has no gathers and no
 per-step dynamic slices; the expected-level band slices (mu/sigma) are
-gathered per (read, chunk) by ops/cuda_dp.band_gather and read as dense rows.
+gathered per (read, chunk) by the fill kernels' producer warps (plain
+version: ops/cuda_dp.band_gather_plain) and read as dense rows.
 
 The scan backend consumes the *expanded* per-sample
 ``lo[t] = lo_chunk[t // C]`` form, so all three implementations share one

@@ -3,12 +3,13 @@
 Twin in role of ``nadavca_tpu/utils/native_build.py``. The sources have a
 plain C interface and include nothing of PyTorch, so ``nvcc`` compiles each in
 seconds (the walk's, with its 64 instantiations for bands up to 1024 slots, in
-about a minute); every source is compiled to an object by its own ``nvcc``
-process, all started together, and one link step makes ``libnadavca_kernels.so``, which is
-loaded with ``ctypes``. The output lives in ``nadavca_tpu_torch/_build/<hash>/``
-keyed by a hash of the sources and the flags, is built at first use and never
-committed. A failed build raises with the compiler's output; nothing falls
-back.
+about a minute). There are three: the fills (``viterbi_fill.cu``), the walk
+(``backtrack.cu``) and the local rescore (``rescore.cu``); each is compiled
+to an object by its own ``nvcc`` process, all started together, and one link
+step makes ``libnadavca_kernels.so``, which is loaded with ``ctypes``. The
+output lives in ``nadavca_tpu_torch/_build/<hash>/`` keyed by a hash of the
+sources and the flags, is built at first use and never committed. A failed
+build raises with the compiler's output; nothing falls back.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math`` — the Viterbi fill must take
 the decisions eager PyTorch takes for the same expression, and the local
@@ -123,37 +124,36 @@ def build_library() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nadavca_band_gather.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.nadavca_band_gather.restype = i
     lib.nadavca_viterbi_fill.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, f, f, p]
     lib.nadavca_viterbi_fill.restype = i
     lib.nadavca_viterbi_fill_skip.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, f, f, f, p]
     lib.nadavca_viterbi_fill_skip.restype = i
+    lib.nadavca_viterbi_fill_pair.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, f, f, f, f, f, p]
+    lib.nadavca_viterbi_fill_pair.restype = i
     lib.nadavca_viterbi_fill_layout.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                 i, i, i, i, i, f, f, i, p]
     lib.nadavca_viterbi_fill_layout.restype = i
     lib.nadavca_viterbi_fill_skip_layout.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                                      i, i, i, i, i, f, f, f, i, p]
     lib.nadavca_viterbi_fill_skip_layout.restype = i
+    lib.nadavca_viterbi_fill_pair_layout.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                                     i, i, i, i, i, f, f, f, f, f, i, p]
+    lib.nadavca_viterbi_fill_pair_layout.restype = i
     lib.nadavca_fill_slots_per_lane.argtypes = [i, i]
     lib.nadavca_fill_slots_per_lane.restype = i
-    lib.nadavca_viterbi_fill_pair.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, f, f, f, f, f, p]
-    lib.nadavca_viterbi_fill_pair.restype = i
     lib.nadavca_backtrack.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.nadavca_backtrack.restype = i
     lib.nadavca_backtrack_skip.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.nadavca_backtrack_skip.restype = i
-    lib.nadavca_shear_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.nadavca_shear_gather.restype = i
     lib.nadavca_rescore_local_tab.argtypes = [p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, f, f, p]
     lib.nadavca_rescore_local_tab.restype = i
-    lib.nadavca_rescore.argtypes = [p, p, p, p, p, p, p, p,
-                                    i, i, i, i, f, f, p]
-    lib.nadavca_rescore.restype = i
+    lib.nadavca_rescore_local.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, i, i, f, f, p]
+    lib.nadavca_rescore_local.restype = i
     lib.nadavca_error_string.argtypes = [i]
     lib.nadavca_error_string.restype = ctypes.c_char_p
 

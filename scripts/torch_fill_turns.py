@@ -1,45 +1,46 @@
 #!/usr/bin/env python3
-"""Time the port's Viterbi fill (``csrc/viterbi_fill.cu``) against an older
-version of it, in turns, on one NVIDIA card, and report what the compiler
-made of it.
+"""Time the port's Viterbi fills (``csrc/viterbi_fill.cu``) against an older
+version of them, in turns, on one NVIDIA card, and report what the compiler
+made of them.
 
     python3 scripts/torch_fill_turns.py --old DIR [--reps 20] [--out DIR]
 
 ``DIR`` is the root of another checkout of this repository (for example an
-unpacked ``git archive`` of an earlier commit) in which the single-step
-fills take gathered bands: ``nadavca_tpu_torch/csrc/band_gather.cu`` with
-``nadavca_band_gather``, ``viterbi_fill.cu`` with ``nadavca_viterbi_fill`` /
-``nadavca_viterbi_fill_skip`` on (n_chunks, R, B) bands, and
-``viterbi_fill_pair.cu`` with ``nadavca_viterbi_fill_pair``. Those three
-sources are built with ``nvcc`` (one process each, started together) into a
-library of their own under ``DIR/_fill_build`` and bound with ``ctypes``;
-this checkout's kernels, whose fills gather their band levels from the
-(R, N) level rows themselves, are built as the port builds them.
+unpacked ``git archive`` of an earlier commit) in which the two-sample fill
+takes gathered bands: ``nadavca_tpu_torch/csrc/band_gather.cu`` with
+``nadavca_band_gather``, ``viterbi_fill_pair.cu`` with
+``nadavca_viterbi_fill_pair`` on (n_chunks, R, B) bands, and
+``viterbi_fill.cu`` with the single-step fills ``nadavca_viterbi_fill`` /
+``nadavca_viterbi_fill_skip`` on the (R, N) level rows. Those three sources
+are built with ``nvcc`` (one process each, started together) into a library
+of their own under ``DIR/_fill_build`` and bound with ``ctypes``; this
+checkout's kernels, all three of whose fills gather their band levels from
+the rows themselves, are built as the port builds them.
 
 On the batches ``chip_smoke.py`` checks its kernels on (same seeds: the
-default batch R=256, T=11136, B=128, the batch with pore skips, and the wide
-batches R=32, T=22016, B=256 without and with skips), after checking that
-every version gives the plain version's decision words:
+default batch R=256, T=11136, B=128, the batch with pore skips, the wide
+batches R=32, T=22016, B=256 without and with skips, and the default reads
+banded at B=384 and 512), after checking that every version gives the plain
+version's decision words (and the two-sample fills, V and acc to the bit):
 
-- the older band gather followed by the older fill (K1b + K1, or K7a on the
-  batches with skips) against this checkout's fill with its band gather
-  folded in: old, new, new, old;
-- the older standalone band gather against this checkout's, and two
-  ``torch.gather`` calls (the yardstick of ``chip_smoke.py``): old, new,
-  library, library, new, old;
-- the two-sample fill (K7b, the same source in both checkouts) on the same
-  bands in the same turns, as the control that must not move;
-- every layout (S slots per lane, W = B / (32 S) warps per read) the kernel
-  can run at that band width, forward then backward, the table's marked;
+- the older band gather followed by the older two-sample fill (K1b + K7b)
+  against this checkout's two-sample fill with the gather folded in: old,
+  new, new, old (the batches without skips);
+- the single-step fill (K1, or K7a on the batches with skips) of both
+  checkouts in the same turns, the control;
+- every layout (S slots per lane, W = ceil(B / (32 S)) warps per read) each
+  kernel can run at that band width, forward then backward, the table's
+  marked;
 - nanoseconds per serial step (ms / t_len.max()) of each.
 
 Then, from this checkout's build: the registers, shared memory and spills of
 each fill kernel (``ptxas -v``), and from its SASS (``cuobjdump -sass``) the
-instructions and the compiler's stall cycles per sample of the unrolled
-sample loops of a chain warp and of a producer warp. The full SASS of the
-fill kernels goes to ``fill_sass.txt`` in ``--out``, by default the build
-directory beside the library and its ``ptxas.log``. Prints one JSON line per measurement; the card's name,
-power limit and SM clock come first. Needs a card; exits 2 without one.
+instructions and the compiler's stall cycles per sample (per pair for the
+two-sample fill) of the unrolled loops of a chain warp and of a producer
+warp. The full SASS of the fill kernels goes to ``fill_sass.txt`` in
+``--out``, by default the build directory beside the library and its
+``ptxas.log``. Prints one JSON line per measurement; the card's name, power
+limit and SM clock come first. Needs a card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from nadavca_tpu_torch.ops import cuda_dp                          # noqa: E402
 from nadavca_tpu_torch.utils import kernel_build                  # noqa: E402
 from torch_walk_turns import batches                               # noqa: E402
 
-FILL_NAMES = ("viterbi_fill_kernel", "viterbi_fill_skip_kernel")
+FILL_NAMES = ("viterbi_fill_kernel", "viterbi_fill_skip_kernel", "viterbi_fill_pair_kernel")
 
 
 def build_old(old_root: str) -> ctypes.CDLL:
@@ -90,8 +91,8 @@ def build_old(old_root: str) -> ctypes.CDLL:
                     "-o", so] + objs, check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nadavca_viterbi_fill.argtypes = [p] * 10 + [i] * 4 + [f, f, p]
-    lib.nadavca_viterbi_fill_skip.argtypes = [p] * 11 + [i] * 4 + [f, f, f, p]
+    lib.nadavca_viterbi_fill.argtypes = [p] * 10 + [i] * 5 + [f, f, p]
+    lib.nadavca_viterbi_fill_skip.argtypes = [p] * 11 + [i] * 5 + [f, f, f, p]
     lib.nadavca_viterbi_fill_pair.argtypes = [p] * 10 + [i] * 4 + [f] * 5 + [p]
     lib.nadavca_band_gather.argtypes = [p] * 5 + [i] * 4 + [p]
     for fn in (lib.nadavca_viterbi_fill, lib.nadavca_viterbi_fill_skip,
@@ -121,9 +122,9 @@ def old_gather(lib, args, B):
 
 def launch(fn, args, cfg, n_planes, extra, rows: bool):
     """A fill of either library's C interface on the wrapper's outputs. With
-    ``rows`` the level arguments are the (R, N) rows and N goes after B (this
-    checkout's single-step fills), else gathered bands. ``extra`` are the
-    float constants, then any further int arguments."""
+    ``rows`` the level arguments are the (R, N) rows and N goes after B, else
+    gathered bands (the older two-sample fill). ``extra`` are the float
+    constants, then any further int arguments."""
     x, t_len, mu, sigma, lo, delta, n_ref = args
     R, T = x.shape
     B = cfg.band_width
@@ -137,11 +138,10 @@ def launch(fn, args, cfg, n_planes, extra, rows: bool):
     return decs, v_out, acc
 
 
-def fill_fns(lib, cfg, layout_s=None, rows=True):
-    """(callable (args) -> outputs) of the single-step fill of ``lib``: the
-    table's layout, or ``layout_s`` slots per lane through the layout entry.
-    ``args`` hold the level rows; without ``rows`` (the older checkout) the
-    older band gather runs first and the fill takes its bands."""
+def fill_fns(lib, cfg, layout_s=None):
+    """(callable (args) -> outputs) of the single-step fill of ``lib`` on the
+    level rows in ``args``: the table's layout, or ``layout_s`` slots per lane
+    through the layout entry."""
     if cfg.use_skip:
         consts = [cfg.log_p_stay, cfg.log_p_move, cfg.log_p_skip]
         fn = lib.nadavca_viterbi_fill_skip if layout_s is None else \
@@ -153,24 +153,35 @@ def fill_fns(lib, cfg, layout_s=None, rows=True):
             lib.nadavca_viterbi_fill_layout
         planes = 1
     extra = consts + ([] if layout_s is None else [layout_s])
-    if rows:
-        return lambda args: launch(fn, args, cfg, planes, extra, rows=True)
+    return lambda args: launch(fn, args, cfg, planes, extra, rows=True)
 
+
+def pair_consts(cfg_pair):
+    cs_, cm = cfg_pair.log_p_stay, cfg_pair.log_p_move
+    return [cs_, cm, cs_ + cs_, cs_ + cm, cm + cm]
+
+
+def old_pair_fn(lib, cfg_pair):
+    """The older band gather followed by the older two-sample fill on its
+    bands, from the rows in ``args``."""
     def gather_then_fill(args):
-        mu_b, sg_b = old_gather(lib, args, cfg.band_width)
-        return launch(fn, args[:2] + (mu_b, sg_b) + args[4:], cfg, planes, extra,
-                      rows=False)
+        mu_b, sg_b = old_gather(lib, args, cfg_pair.band_width)
+        return launch(lib.nadavca_viterbi_fill_pair, args[:2] + (mu_b, sg_b) + args[4:],
+                      cfg_pair, 1, pair_consts(cfg_pair), rows=False)
     return gather_then_fill
 
 
-def pair_fn(lib, cfg_pair):
-    """The two-sample fill of ``lib`` on gathered bands."""
-    cs_, cm = cfg_pair.log_p_stay, cfg_pair.log_p_move
-    return lambda bands: launch(lib.nadavca_viterbi_fill_pair, bands, cfg_pair, 1,
-                                [cs_, cm, cs_ + cs_, cs_ + cm, cm + cm], rows=False)
+def new_pair_fn(lib, cfg_pair, layout_s=None):
+    """This checkout's two-sample fill on the rows: the table's layout, or
+    ``layout_s`` slots per lane."""
+    if layout_s is None:
+        return lambda args: launch(lib.nadavca_viterbi_fill_pair, args, cfg_pair, 1,
+                                   pair_consts(cfg_pair), rows=True)
+    return lambda args: launch(lib.nadavca_viterbi_fill_pair_layout, args, cfg_pair, 1,
+                               pair_consts(cfg_pair) + [layout_s], rows=True)
 
 
-def assert_same(tag, got, want):
+def assert_same(tag, got, want, exact=False):
     (decs, v, acc), (p_decs, p_v, p_acc) = got, want
     assert len(decs) == len(p_decs), tag
     for d, p in zip(decs, p_decs):
@@ -180,11 +191,25 @@ def assert_same(tag, got, want):
     assert bool((live == (v > -5e29)).all()), tag
     assert float(((v - p_v).abs() * live).max()) <= 1e-3, tag
     torch.testing.assert_close(acc, p_acc, rtol=1e-5, atol=1e-3)
+    if exact:
+        assert torch.equal(v, p_v) and torch.equal(acc, p_acc), tag
 
 
-def layouts(B: int):
-    """Every S the kernels take at band width B (W = B / (32 S) <= 8)."""
+def layouts(B: int, pair: bool = False):
+    """Every S a fill takes at band width B (W <= 8 warps: B / (32 S), or
+    for the two-sample fill ceil(B / (32 S)))."""
+    if pair:
+        return [s for s in (2, 4, 8) if -(-B // (32 * s)) <= 8]
     return [s for s in (2, 4, 8) if B % (32 * s) == 0 and B // (32 * s) <= 8]
+
+
+def time_layouts(fns, args, reps):
+    """Each layout's ms, forward then backward."""
+    order = list(fns) + list(fns)[::-1]
+    ms = collections.defaultdict(list)
+    for s in order:
+        ms[s].append(cs.event_ms(lambda: fns[s](args), reps))
+    return ms
 
 
 def demangle(name: str) -> str:
@@ -271,9 +296,13 @@ def sass_report(out_dir: str) -> list:
                 blocks.append(cur)
                 cur = []
         blocks.append(cur)
-        planes = 2 if "skip" in name else 1
-        entry = {"kernel": name, "instructions": len(instrs)}
-        for role, key, per in (("chain", "SHFL.UP", planes), ("producer", "SHFL.IDX", 1)):
+        # shuffles a step: per sample one SHFL.UP a plane in the chain, one
+        # SHFL.IDX of x in the producer; per pair two of each
+        planes = 2 if ("skip" in name or "pair" in name) else 1
+        x_per = 2 if "pair" in name else 1
+        entry = {"kernel": name, "instructions": len(instrs),
+                 "step": "pair" if "pair" in name else "sample"}
+        for role, key, per in (("chain", "SHFL.UP", planes), ("producer", "SHFL.IDX", x_per)):
             # a producer block holds no SHFL.UP (a chain block may hold SHFL.IDX)
             cands = [b for b in blocks if any(op.startswith(key) for _, op, _ in b)
                      and (role == "chain"
@@ -281,11 +310,11 @@ def sass_report(out_dir: str) -> list:
             if not cands:
                 continue
             big = max(cands, key=len)
-            samples = sum(op.startswith(key) for _, op, _ in big) // per
+            steps = sum(op.startswith(key) for _, op, _ in big) // per
             ops = collections.Counter(op.split(".")[0] for _, op, _ in big)
-            entry[role] = {"block_instructions": len(big), "samples": samples,
-                           "instructions_per_sample": len(big) / samples,
-                           "stall_cycles_per_sample": sum(st for _, _, st in big) / samples,
+            entry[role] = {"block_instructions": len(big), "steps": steps,
+                           "instructions_per_step": len(big) / steps,
+                           "stall_cycles_per_step": sum(st for _, _, st in big) / steps,
                            "opcodes": dict(ops.most_common())}
         report.append(entry)
     os.makedirs(out_dir, exist_ok=True)
@@ -313,75 +342,97 @@ def main() -> int:
     old = build_old(args.old)
     new = kernel_build.load_library()
     for B in range(128, 1025, 128):
-        for skip in (False, True):
-            assert new.nadavca_fill_slots_per_lane(B, skip) == \
-                cuda_dp.fill_layout(B, skip)[0], (B, skip)
+        for variant, skip, pair in ((0, False, False), (1, True, False), (2, False, True)):
+            assert new.nadavca_fill_slots_per_lane(B, variant) == \
+                cuda_dp.fill_layout(B, skip, pair)[0], (B, variant)
     cs.emit({"ptxas": ptxas_report()})
     cs.emit({"sass": sass_report(
         args.out or os.path.dirname(kernel_build.build_library()))})
     reps = args.reps
-    for name, cfg, (batch, a) in batches(args.seed):
+    for name, cfg, (batch, a) in all_batches(args.seed):
         B = cfg.band_width
         fargs = (a["x"], a["t_len"], a["mu"], a["sigma"], a["lo"], a["delta"], a["n_ref"])
-        mu_b, sg_b = cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B)
-        bands = fargs[:2] + (mu_b, sg_b) + fargs[4:]
-        p_mu, p_sg = cuda_dp.band_gather_plain(a["mu"], a["sigma"], a["lo"], B)
-        o_mu, o_sg = old_gather(old, fargs, B)
-        assert all(torch.equal(u, v) for u, v in ((mu_b, p_mu), (sg_b, p_sg),
-                                                  (o_mu, p_mu), (o_sg, p_sg))), name
         steps = int(a["t_len"].max())
-        want = cuda_dp.viterbi_fill_plain(*bands, cfg)
-        f_old, f_new = fill_fns(old, cfg, rows=False), fill_fns(new, cfg)
-        assert_same(f"{name}: old", f_old(fargs), want)
-        assert_same(f"{name}: new", f_new(fargs), want)
-        assert_same(f"{name}: wrapper", cuda_dp.viterbi_fill(*fargs, cfg), want)
-        turns = [cs.event_ms(lambda: f(fargs), reps) for f in (f_old, f_new, f_new, f_old)]
-        # the standalone gathers and the two-torch.gather yardstick
-        idx = (a["lo"].long()[:, :, None] + torch.arange(B, device="cuda")).reshape(
-            a["lo"].shape[0], -1)
-        pad = max(int(idx.max()) + 1 - a["mu"].shape[1], 0)
-        mu_pad = torch.nn.functional.pad(a["mu"], (0, pad), value=0.0)
-        sg_pad = torch.nn.functional.pad(a["sigma"], (0, pad), value=1.0)
-        # both gathers through the same bare ctypes call (no wrapper), then
-        # this checkout's through its wrapper
-        g_old = lambda: old_gather(old, fargs, B)
-        g_new = lambda: old_gather(new, fargs, B)
-        g_lib = lambda: (torch.gather(mu_pad, 1, idx), torch.gather(sg_pad, 1, idx))
-        gather_turns = [cs.event_ms(f, reps)
-                        for f in (g_old, g_new, g_lib, g_lib, g_new, g_old)]
-        wrapper_ms = cs.event_ms(
-            lambda: cuda_dp.band_gather(a["mu"], a["sigma"], a["lo"], B), reps)
-        del idx, mu_pad, sg_pad, o_mu, o_sg, p_mu, p_sg
-        cfg_pair = nt.AlignConfig(band_width=B, dp_pair_step=True)
-        p_old, p_new = pair_fn(old, cfg_pair), pair_fn(new, cfg_pair)
-        assert_same(f"{name}: pair", p_new(bands), p_old(bands))
-        pair_turns = [cs.event_ms(lambda: f(bands), reps)
-                      for f in (p_old, p_new, p_new, p_old)]
+        mu_b, sg_b = cuda_dp.band_gather_plain(a["mu"], a["sigma"], a["lo"], B)
+        bands = fargs[:2] + (mu_b, sg_b) + fargs[4:]
+        o_mu, o_sg = old_gather(old, fargs, B)
+        assert torch.equal(o_mu, mu_b) and torch.equal(o_sg, sg_b), name
+        del o_mu, o_sg
+        out = {"batch": name, "R": batch.x.shape[0], "T": batch.x.shape[1], "B": B,
+               "serial_steps": steps, "reps": reps}
+        turns = []
+        if cfg.use_skip:
+            # K7a alone: the control
+            want = cuda_dp.viterbi_fill_plain(*bands, cfg)
+            f_old, f_new = fill_fns(old, cfg), fill_fns(new, cfg)
+            assert_same(f"{name}: old", f_old(fargs), want)
+            assert_same(f"{name}: new", f_new(fargs), want)
+            out["control_single_step_old_new_new_old_ms"] = [
+                cs.event_ms(lambda: f(fargs), reps) for f in (f_old, f_new, f_new, f_old)]
+        else:
+            # the older gather + two-sample fill against this checkout's, the
+            # single-step fill (K1) of both in the same turns as the control
+            cfg_pair = nt.AlignConfig(band_width=B, dp_pair_step=True)
+            want = cuda_dp.viterbi_fill_pair_plain(*bands, cfg_pair)
+            p_old, p_new = old_pair_fn(old, cfg_pair), new_pair_fn(new, cfg_pair)
+            assert_same(f"{name}: old pair", p_old(fargs), want, exact=True)
+            assert_same(f"{name}: new pair", p_new(fargs), want, exact=True)
+            assert_same(f"{name}: pair wrapper", cuda_dp.viterbi_fill(*fargs, cfg_pair),
+                        want, exact=True)
+            single = nt.AlignConfig(band_width=B)
+            f_old, f_new = fill_fns(old, single), fill_fns(new, single)
+            assert_same(f"{name}: single", f_new(fargs), f_old(fargs))
+            order = (p_old, f_old, p_new, f_new, p_new, f_new, p_old, f_old)
+            t = [cs.event_ms(lambda: f(fargs), reps) for f in order]
+            turns = [t[0], t[2], t[4], t[6]]
+            out.update(
+                kernel="band_gather + viterbi_fill_pair -> viterbi_fill_pair (folded)",
+                pair_old_new_new_old_ms=turns,
+                pair_speedup=(turns[0] + turns[3]) / (turns[1] + turns[2]),
+                pair_ns_per_step_old=(turns[0] + turns[3]) / 2 / steps * 1e6,
+                pair_ns_per_step_new=(turns[1] + turns[2]) / 2 / steps * 1e6,
+                control_single_step_old_new_new_old_ms=[t[1], t[3], t[5], t[7]],
+                pair_device_ms_old=cs.device_ms(lambda: p_old(fargs), reps),
+                pair_device_ms_new=cs.device_ms(lambda: p_new(fargs), reps))
+            # the two-sample fill's layouts
+            S_kept, W_kept = cuda_dp.fill_layout(B, pair_step=True)
+            fns = {s: new_pair_fn(new, cfg_pair, s) for s in layouts(B, pair=True)}
+            for s, f in fns.items():
+                assert_same(f"{name}: pair S={s}", f(fargs), want, exact=True)
+            ms = time_layouts(fns, fargs, reps)
+            out["pair_layout_kept"] = [S_kept, W_kept]
+            out["pair_layouts"] = [
+                {"S": s, "W": -(-B // (32 * s)), "kept": s == S_kept, "ms_in_turns": ms[s],
+                 "ns_per_step": sum(ms[s]) / len(ms[s]) / steps * 1e6} for s in fns]
+        # the single-step fill's layouts
+        want = cuda_dp.viterbi_fill_plain(*bands, cfg if cfg.use_skip
+                                          else nt.AlignConfig(band_width=B))
+        cfg_s = cfg if cfg.use_skip else nt.AlignConfig(band_width=B)
         S_kept, W_kept = cuda_dp.fill_layout(B, cfg.use_skip)
-        lays = layouts(B)
-        fns = {s: fill_fns(new, cfg, s) for s in lays}
-        for s in lays:
-            assert_same(f"{name}: S={s}", fns[s](fargs), want)
-        order = lays + lays[::-1]
-        ms = collections.defaultdict(list)
-        for s in order:
-            ms[s].append(cs.event_ms(lambda: fns[s](fargs), reps))
-        lay_out = [{"S": s, "W": B // (32 * s), "kept": s == S_kept, "ms_in_turns": ms[s],
-                    "ns_per_step": sum(ms[s]) / len(ms[s]) / steps * 1e6} for s in lays]
-        cs.emit({"batch": name, "R": batch.x.shape[0], "T": batch.x.shape[1], "B": B,
-                 "kernel": ("band_gather + viterbi_fill_skip" if cfg.use_skip
-                            else "band_gather + viterbi_fill") + " -> folded",
-                 "serial_steps": steps, "reps": reps, "layout_kept": [S_kept, W_kept],
-                 "old_new_new_old_ms": turns,
-                 "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
-                 "ns_per_step_old": (turns[0] + turns[3]) / 2 / steps * 1e6,
-                 "ns_per_step_new": (turns[1] + turns[2]) / 2 / steps * 1e6,
-                 "band_gather_old_new_lib_lib_new_old_ms": gather_turns,
-                 "band_gather_new_through_wrapper_ms": wrapper_ms,
-                 "pair_fill_old_new_new_old_ms": pair_turns,
-                 "layouts": lay_out, "clocks_after": smi("clocks.sm")})
+        fns = {s: fill_fns(new, cfg_s, s) for s in layouts(B)}
+        for s, f in fns.items():
+            assert_same(f"{name}: S={s}", f(fargs), want)
+        ms = time_layouts(fns, fargs, reps)
+        out["single_step_layout_kept"] = [S_kept, W_kept]
+        out["single_step_layouts"] = [
+            {"S": s, "W": B // (32 * s), "kept": s == S_kept, "ms_in_turns": ms[s],
+             "ns_per_step": sum(ms[s]) / len(ms[s]) / steps * 1e6} for s in fns]
+        out["clocks_after"] = smi("clocks.sm")
+        cs.emit(out)
         del want, mu_b, sg_b, bands
     return 0
+
+
+def all_batches(seed: int):
+    """The walk's batches (``torch_walk_turns.batches``), then the default
+    reads banded at B = 384 and 512."""
+    yield from batches(seed)
+    model, reference, reads, _ = cs.make_world(seed, 25000, 20, 512, 1000)
+    for B in (384, 512):
+        cfg = nt.AlignConfig(band_width=B)
+        _, records = cs.records_of(reads, reference, model, cfg)
+        top = sorted(records, key=lambda r: len(r.signal))[-256:]
+        yield f"main, B={B}", cfg, cs.staged_batch(top, model, cfg)
 
 
 if __name__ == "__main__":

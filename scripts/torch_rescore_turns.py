@@ -1,38 +1,42 @@
 #!/usr/bin/env python3
-"""Time the port's local rescore with genome tables against an older version
-of it, in turns, on one NVIDIA card.
+"""Time the port's local rescore against an older version of it, in turns,
+on one NVIDIA card.
 
     python3 scripts/torch_rescore_turns.py --old DIR [--reps 20]
 
 ``DIR`` is the root of another checkout of this repository (for example an
-unpacked ``git archive`` of an earlier commit) in which the tables rescore
-was two kernels with tensor code around them: ``nadavca_tpu_torch/csrc/
-shear_gather.cu`` with ``nadavca_shear_gather`` (the sample windows as a
-(t_w, R, L) array) and ``rescore.cu`` with ``nadavca_rescore_tab`` (the local
-DP on them). Those two sources are built with ``nvcc`` into a library of
-their own under ``DIR/_rescore_build`` and bound with ``ctypes``; the tensor
-code between them is this checkout's ``cuda_rescore.local_windows``,
-``span_ok`` and ``shear_slab_base``, which the fused kernel left unchanged,
-strung together as the older ``base_loglik_local_cuda`` did. This
-checkout's ``base_loglik_local_cuda`` runs one ``rescore_local_tab`` launch.
+unpacked ``git archive`` of an earlier commit) in which the rescore without
+genome tables was two kernels with tensor code around them:
+``nadavca_tpu_torch/csrc/shear_gather.cu`` with ``nadavca_shear_gather``
+(the sample windows as a (t_w, R, L) array) and ``rescore.cu`` with
+``nadavca_rescore`` (the local DP on them and on (k*4, R, L) constants), and
+with tables the fused ``nadavca_rescore_local_tab``. Those two sources are
+built with ``nvcc`` into a library of their own under ``DIR/_rescore_build``
+and bound with ``ctypes``; the tensor code around the older kernels is this
+checkout's ``cuda_rescore.local_windows``, ``span_ok``, ``shear_slab_base``
+and ``batch_constants``, which the new kernel left unchanged, strung together
+as the older ``base_loglik_local_cuda`` did. This checkout's
+``base_loglik_local_cuda`` runs one ``rescore_local`` launch without tables
+and one ``rescore_local_tab`` launch with them.
 
 On ``chip_smoke.py``'s default batch (seed 0: R=256, T=11136, L=1024,
 t_w=192), its wide batch banded at 256 (R=32, T=22016) and a batch of short
 reads (T < 2304, no slab rule), on the path and counts the card's walk
-gives, after checking that both versions give the same (R, L, 4) result:
+gives, after checking that both versions give the same (R, L, 4) result to
+the bit:
 
-- the whole rescore old, new, new, old, by CUDA events (the stream's time
-  from the first launch to the last, host gaps included) and by the host's
-  clock around a synchronise;
-- the kernels alone in the same order: the older K4 + K5 against the fused
-  kernel;
-- the peak device memory of one call of each.
+- without tables, the whole rescore old, new, new, old, by CUDA events (the
+  stream's time from the first launch to the last, host gaps included) and
+  by the host's clock around a synchronise; the kernels alone in the same
+  order (the older K4 + K6 on inputs made beforehand against the new
+  kernel); the peak device memory of one call of each;
+- with tables, the older fused kernel against this checkout's in the same
+  turns, the control.
 
-The pipeline hands the rescore the window offsets' range from the host, so
-neither version reads them back from the card here. Before the batches, from
-this checkout's build: the registers and spills of the fused kernel
-(``ptxas -v``) and, from its SASS (``cuobjdump -sass``), the instructions and
-the compiler's stall cycles per sample of its DP loop at k = 6.
+Before the batches, from this checkout's build: the registers and spills of
+both tile kernels (``ptxas -v``) and, from their SASS (``cuobjdump -sass``),
+the instructions and the compiler's stall cycles per sample of the DP loop
+at k = 6.
 
 Prints one JSON line per batch; the card's name and power limit come first.
 Needs a card; exits 2 without one.
@@ -61,14 +65,14 @@ from nadavca_tpu_torch.ops.subst_tables import build_subst_tables  # noqa: E402
 from nadavca_tpu_torch.utils import kernel_build                  # noqa: E402
 from torch_fill_turns import demangle, sass_instructions          # noqa: E402
 
-LOCAL_KERNEL = "rescore_local_tab_kernel"
+LOCAL_KERNELS = ("rescore_local_tab_kernel", "rescore_local_kernel")
 
 
 def compiler_report() -> dict:
-    """Registers and spills of each fused kernel (``ptxas -v``), and the DP
-    loop of the k = 6 one from its SASS: the largest basic block that loads
-    a sample from shared memory (LDS), its instructions and the compiler's
-    stall cycles per sample, and its opcodes."""
+    """Registers and spills of each tile kernel (``ptxas -v``), and the DP
+    loop of the k = 6 ones from their SASS: the largest basic block that
+    loads a sample from shared memory (LDS), its instructions and the
+    compiler's stall cycles per sample, and its opcodes."""
     so = kernel_build.build_library()
     text = open(os.path.join(os.path.dirname(so), "ptxas.log")).read()
     regs, name = {}, None
@@ -76,18 +80,21 @@ def compiler_report() -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = demangle(m.group(1))
+        local = name and any(kn in name for kn in LOCAL_KERNELS)
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name and LOCAL_KERNEL in name:
+        if m and local:
             regs.setdefault(name, {})["spill_stores"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and LOCAL_KERNEL in name:
+        if m and local:
             regs.setdefault(name, {})["registers"] = int(m.group(1))
     cuobjdump = os.path.join(os.path.dirname(kernel_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
-    loop = None
+    loops = {}
     for body in re.split(r"\n\s+Function : ", sass)[1:]:
-        if f"{LOCAL_KERNEL}<6>" not in demangle(body.split("\n", 1)[0].strip()):
+        fname = demangle(body.split("\n", 1)[0].strip())
+        kname = next((kn for kn in LOCAL_KERNELS if f"{kn}<6>" in fname), None)
+        if kname is None:
             continue
         instrs, targets = sass_instructions(body)
         blocks, cur = [], []
@@ -105,12 +112,13 @@ def compiler_report() -> dict:
         if cands:
             big = max(cands, key=len)
             samples = sum(op.startswith("LDS") for _, op, _ in big)
-            loop = {"block_instructions": len(big), "samples": samples,
-                    "instructions_per_sample": len(big) / samples,
-                    "stall_cycles_per_sample": sum(st for _, _, st in big) / samples,
-                    "opcodes": dict(collections.Counter(
-                        op.split(".")[0] for _, op, _ in big).most_common())}
-    return {"ptxas": regs, "k6_dp_loop": loop}
+            loops[kname] = {
+                "block_instructions": len(big), "samples": samples,
+                "instructions_per_sample": len(big) / samples,
+                "stall_cycles_per_sample": sum(st for _, _, st in big) / samples,
+                "opcodes": dict(collections.Counter(
+                    op.split(".")[0] for _, op, _ in big).most_common())}
+    return {"ptxas": regs, "dp_loop_k6": loops}
 
 
 def build_old(old_root: str) -> ctypes.CDLL:
@@ -126,8 +134,10 @@ def build_old(old_root: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nadavca_shear_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.nadavca_rescore_tab.argtypes = [p] * 7 + [i] * 5 + [f, f, p]
-    lib.nadavca_shear_gather.restype = lib.nadavca_rescore_tab.restype = i
+    lib.nadavca_rescore.argtypes = [p] * 8 + [i] * 4 + [f, f, p]
+    lib.nadavca_rescore_local_tab.argtypes = [p] * 9 + [i] * 8 + [f, f, p]
+    for fn in (lib.nadavca_shear_gather, lib.nadavca_rescore, lib.nadavca_rescore_local_tab):
+        fn.restype = i
     return lib
 
 
@@ -135,8 +145,22 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def old_kernels(lib, x, S_c, W, kk, ref, woff, tab, cfg, t_w):
-    """The older K4 (under the slab rule where T allows it) and K5."""
+def old_prelude(x, path, t_len, codes, ids, lm, ls, N, cfg, t_w, cnt):
+    """The tensor code the older version ran before its kernels: windows,
+    span mask, per-batch constants."""
+    T = x.shape[1]
+    S, W, kk, p_lo, valid_i = cuda_rescore.local_windows(path, t_len, codes, N, cfg.k,
+                                                         t_w, cnt)
+    S_c = S.clamp(0, T - 1).contiguous()
+    if T >= cuda_rescore.SPAN + 256:
+        W = torch.where(cuda_rescore.span_ok(S_c, T), W, torch.zeros_like(W))
+    em, mu, iv, slots_ok = cuda_rescore.batch_constants(p_lo, kk, codes, ids, lm, ls,
+                                                        cfg.k)
+    return S_c, W.contiguous(), kk.contiguous(), valid_i, em, mu, iv, slots_ok
+
+
+def old_kernels(lib, x, S_c, W, kk, ref, em, mu, iv, cfg, t_w):
+    """The older K4 (under the slab rule where T allows it) and K6."""
     R, T = x.shape
     L = S_c.shape[1]
     slab = T >= cuda_rescore.SPAN + 256
@@ -149,38 +173,38 @@ def old_kernels(lib, x, S_c, W, kk, ref, woff, tab, cfg, t_w):
                                     stream())
     assert code == 0, code
     out = torch.empty((4, R, L), dtype=torch.float32, device=x.device)
-    code = lib.nadavca_rescore_tab(xs.data_ptr(), W.data_ptr(), kk.data_ptr(),
-                                   ref.data_ptr(), woff.data_ptr(), tab.data_ptr(),
-                                   out.data_ptr(), R, L, t_w, cfg.k, tab.shape[2],
-                                   float(cfg.log_p_stay), float(cfg.log_p_move), stream())
+    code = lib.nadavca_rescore(xs.data_ptr(), em.data_ptr(), mu.data_ptr(), iv.data_ptr(),
+                               W.data_ptr(), kk.data_ptr(), ref.data_ptr(), out.data_ptr(),
+                               R, L, t_w, cfg.k, float(cfg.log_p_stay),
+                               float(cfg.log_p_move), stream())
     assert code == 0, code
     return out
 
 
-def old_prelude(x, path, t_len, codes, N, cfg, t_w, cnt):
-    """The tensor code the older version ran before its kernels."""
-    T = x.shape[1]
-    S, W, kk, _, valid_i = cuda_rescore.local_windows(path, t_len, codes, N, cfg.k, t_w,
-                                                      cnt)
-    S_c = S.clamp(0, T - 1).contiguous()
-    if T >= cuda_rescore.SPAN + 256:
-        W = torch.where(cuda_rescore.span_ok(S_c, T), W, torch.zeros_like(W))
-    return S_c, W.contiguous(), kk, valid_i
-
-
-def old_local(lib, x, path, t_len, codes, N, woff, tables, cfg, t_w, cnt):
-    """The older ``base_loglik_local_cuda`` with tables: prelude, K4, K5, and
-    the masks and layout after them."""
-    L = codes.shape[1]
-    S_c, W, kk, valid_i = old_prelude(x, path, t_len, codes, N, cfg, t_w, cnt)
-    cols = woff.to(torch.int64)[:, None] + torch.arange(L, device=x.device)
-    scores = old_kernels(lib, x, S_c, W, kk, codes.clamp(0, 3), woff, tables.tab, cfg,
-                         t_w)
-    valid_i = valid_i & (kk == cfg.k) & tables.valid[cols]
-    all_ok = valid_i & (W > 0)
+def old_local(lib, x, path, t_len, codes, ids, lm, ls, N, cfg, t_w, cnt):
+    """The older ``base_loglik_local_cuda`` without tables: prelude, K4, K6,
+    and the masks and layout after them."""
+    S_c, W, kk, valid_i, em, mu, iv, slots_ok = old_prelude(
+        x, path, t_len, codes, ids, lm, ls, N, cfg, t_w, cnt)
+    scores = old_kernels(lib, x, S_c, W, kk, codes.clamp(0, 3), em, mu, iv, cfg, t_w)
+    all_ok = valid_i & (W > 0) & slots_ok
     out = scores.permute(1, 2, 0)
     out = torch.where(all_ok[:, :, None], out, torch.zeros_like(out))
     return out.contiguous()
+
+
+def old_local_tab(lib, x, path, t_len, cnt, codes, woff, tables, N, cfg, t_w):
+    """The older fused tables rescore through its bare C interface."""
+    R, T = x.shape
+    L = codes.shape[1]
+    out = torch.empty((R, L, 4), dtype=torch.float32, device=x.device)
+    code = lib.nadavca_rescore_local_tab(
+        x.data_ptr(), cnt.data_ptr(), path.data_ptr(), t_len.data_ptr(), codes.data_ptr(),
+        woff.data_ptr(), tables.tab.data_ptr(), tables.valid.data_ptr(), out.data_ptr(),
+        R, T, L, N, cnt.shape[1], t_w, cfg.k, tables.tab.shape[2],
+        float(cfg.log_p_stay), float(cfg.log_p_move), stream())
+    assert code == 0, code
+    return out
 
 
 def batches(seed: int):
@@ -238,12 +262,10 @@ def main() -> int:
             cfg, count_lanes=cuda_rescore.count_lanes(N))
         path, cnt = res.path, res.counts
         common = (a["x"], path, a["t_len"])
-        old = lambda: old_local(lib, *common, a["codes"], N, a["woff"], tables, cfg,
-                                t_w, cnt)
+        kmer = (a["ids"], a["lm"], a["ls"])
+        old = lambda: old_local(lib, *common, a["codes"], *kmer, N, cfg, t_w, cnt)
         new = lambda: cuda_rescore.base_loglik_local_cuda(
-            *common, a["codes"], a["ids"], a["lm"], a["ls"], cfg.k, cfg, t_w=t_w,
-            tables=tables, window_off=a["woff"], cnt=cnt,
-            window_off_range=a["woff_range"])
+            *common, a["codes"], *kmer, cfg.k, cfg, t_w=t_w, cnt=cnt)
         got_old, got_new = old(), new()
         assert torch.equal(got_old == 0, got_new == 0), name
         err = float((got_old - got_new).abs().max())
@@ -253,24 +275,37 @@ def main() -> int:
         wall = [sum(cs.wall_ms(f) for _ in range(reps)) / reps
                 for f in (old, new, new, old)]
         # the kernels alone, on inputs made beforehand
-        S_c, W, kk, _ = old_prelude(*common, a["codes"], N, cfg, t_w, cnt)
+        S_c, W, kk, _, em, mu, iv, _ = old_prelude(*common, a["codes"], *kmer, N, cfg,
+                                                   t_w, cnt)
         ref = a["codes"].clamp(0, 3)
-        k_old = lambda: old_kernels(lib, a["x"], S_c, W, kk, ref, a["woff"], tables.tab,
-                                    cfg, t_w)
-        k_new = lambda: cuda_rescore.rescore_local_tab(
+        k_old = lambda: old_kernels(lib, a["x"], S_c, W, kk, ref, em, mu, iv, cfg, t_w)
+        k_new = lambda: cuda_rescore.rescore_local(*common, cnt, a["codes"], *kmer, cfg,
+                                                   t_w)
+        k_turns = [cs.event_ms(f, reps) for f in (k_old, k_new, k_new, k_old)]
+        k_dev = [cs.device_ms(f, reps) for f in (k_old, k_new)]
+        del S_c, W, kk, em, mu, iv
+        # the tables rescore: the older fused kernel against this one, the
+        # control
+        tab_args = (*common, cnt, a["codes"], a["woff"], tables, N, cfg, t_w)
+        t_old = lambda: old_local_tab(lib, *tab_args)
+        t_new = lambda: cuda_rescore.rescore_local_tab(
             *common, cnt, a["codes"], a["woff"], tables.tab, tables.valid, N, cfg, t_w,
             woff_range=a["woff_range"])
-        k_turns = [cs.event_ms(f, reps) for f in (k_old, k_new, k_new, k_old)]
+        tab_err = float((t_old() - t_new()).abs().max())
+        assert tab_err <= 1e-3, (name, tab_err)
+        tab_turns = [cs.event_ms(f, reps) for f in (t_old, t_new, t_new, t_old)]
         cs.emit({"batch": name, "R": batch.x.shape[0], "T": batch.x.shape[1],
                  "L": batch.codes.shape[1], "t_w": t_w, "reps": reps,
-                 "max_abs_diff_old_new": err,
-                 "whole_old_new_new_old_ms_events": turns,
-                 "whole_old_new_new_old_ms_host": wall,
-                 "kernels_old_new_new_old_ms": k_turns,
+                 "max_abs_diff_old_new": err, "control_tables_max_abs_diff": tab_err,
+                 "no_tables_whole_old_new_new_old_ms_events": turns,
+                 "no_tables_whole_old_new_new_old_ms_host": wall,
+                 "no_tables_kernels_old_new_new_old_ms": k_turns,
+                 "no_tables_kernels_device_ms_old_new": k_dev,
                  "speedup_whole_events": (turns[0] + turns[3]) / (turns[1] + turns[2]),
                  "speedup_kernels": (k_turns[0] + k_turns[3]) / (k_turns[1] + k_turns[2]),
-                 "peak_mb_old": peak_mb(old), "peak_mb_new": peak_mb(new)})
-        del res, path, cnt, S_c, W, kk
+                 "peak_mb_old": peak_mb(old), "peak_mb_new": peak_mb(new),
+                 "control_tables_old_new_new_old_ms": tab_turns})
+        del res, path, cnt
     return 0
 
 

@@ -71,9 +71,7 @@ def test_kernels_match_plain_versions(card, B, C):
     x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, C=C)
     cfg = AlignConfig(band_width=B, signal_chunk=C, snp_rescore="fixed")
     before = _launches()
-    mu_b, sg_b = cuda_dp.band_gather(mu, sigma, lo_t, B)
     p_mu, p_sg = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
-    assert torch.equal(mu_b, p_mu) and torch.equal(sg_b, p_sg)
 
     # the fill gathers its band levels itself: against the plain gather + fill
     decs, v, acc = cuda_dp.viterbi_fill(x, t_len, mu, sigma, lo_t, dl_t, n_ref, cfg)
@@ -85,8 +83,8 @@ def test_kernels_match_plain_versions(card, B, C):
     assert torch.equal(path, cuda_dp.backtrack_plain(decs, lo_t, dl_t, j_end, C))
     _assert_walk_counts(decs, lo_t, dl_t, j_end, C, t_len, path)
     want = dict(before)
-    for k, n in (("band_gather", 1), ("viterbi_fill", 1), ("band_gather_folded", 1),
-                 ("backtrack", 2), ("path_counts", 1)):
+    for k, n in (("viterbi_fill", 1), ("band_gather_folded", 1), ("backtrack", 2),
+                 ("path_counts", 1)):
         want[k] += n
     assert _launches() == want
 
@@ -134,12 +132,13 @@ def test_skip_and_pair_kernels_match_plain_versions(card, B, C):
     _assert_fill_equal(got, cuda_dp.viterbi_fill_plain(*bands, cfg_off))
     assert bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all())
 
-    # the two-sample fill: one plane, the single-step fill's outputs; the
-    # wrapper gathers its bands with the standalone band gather
+    # the two-sample fill: one plane, the single-step fill's outputs; it
+    # gathers its band levels itself, and equals the plain gather and pair
+    # fill to the bit
     cfg_pair = AlignConfig(band_width=B, signal_chunk=C, dp_pair_step=True)
     got = cuda_dp.viterbi_fill(*rows, cfg_pair)
     assert len(got[0]) == 1
-    _assert_fill_equal(got, cuda_dp.viterbi_fill_pair_plain(*bands, cfg_pair))
+    _assert_fill_exact(got, cuda_dp.viterbi_fill_pair_plain(*bands, cfg_pair))
     single = cuda_dp.viterbi_fill(*rows, AlignConfig(band_width=B, signal_chunk=C))
     torch.testing.assert_close(got[2] + got[1].max(1).values,
                                single[2] + single[1].max(1).values,
@@ -150,36 +149,54 @@ def test_skip_and_pair_kernels_match_plain_versions(card, B, C):
                 path_counts=before["path_counts"] + 1,
                 viterbi_fill_pair=before["viterbi_fill_pair"] + 1,
                 viterbi_fill=before["viterbi_fill"] + 1,
-                band_gather=before["band_gather"] + 1,
-                band_gather_folded=before["band_gather_folded"] + 3)
+                band_gather_folded=before["band_gather_folded"] + 4)
     assert _launches() == want
 
 
-def _rescore_inputs(card, R, L, T, t_w, k, seed):
-    """Random windows, constants and a small substitution table on the card."""
+def _assert_fill_exact(got, want):
+    (decs, v, acc), (p_decs, p_v, p_acc) = got, want
+    assert len(decs) == len(p_decs)
+    for d, p in zip(decs, p_decs):
+        assert torch.equal(d, p)
+    assert torch.equal(v, p_v) and torch.equal(acc, p_acc)
+
+
+@pytest.mark.parametrize("B", [96] + list(range(128, 1025, 128)))
+def test_pair_fill_at_every_width(card, B):
+    """The two-sample fill at every band width the fills take up to 1024 (and
+    at 96, a width that is not a multiple of 32 * S: the last warp's lanes
+    past the band run idle), on reads with odd lengths, against the plain
+    band gather and pair fill, to the bit."""
+    import types
+
+    x, t_len, mu, sigma, lo_t, dl_t, n_ref, C = _dp_inputs(card, B, seed=B)
+    d = AlignConfig()
+    cfg = (AlignConfig(band_width=B, dp_pair_step=True) if B % 128 == 0 else
+           types.SimpleNamespace(band_width=B, signal_chunk=C, dp_pair_step=True,
+                                 use_skip=False, log_p_stay=d.log_p_stay,
+                                 log_p_move=d.log_p_move))
+    rows = (x, t_len, mu, sigma, lo_t, dl_t, n_ref)
+    before = cuda_dp.viterbi_fill_pair.launches
+    got = cuda_dp.viterbi_fill_pair(*rows, cfg)
+    mu_b, sg_b = cuda_dp.band_gather_plain(mu, sigma, lo_t, B)
+    _assert_fill_exact(got, cuda_dp.viterbi_fill_pair_plain(x, t_len, mu_b, sg_b, lo_t,
+                                                            dl_t, n_ref, cfg))
+    assert cuda_dp.viterbi_fill_pair.launches == before + 1
+    assert bool((got[0][0] != 0).any())
+
+
+def _kmer_inputs(codes, k, N, seed):
+    """The window's k-mer ids (-1 over a non-base) and a random k-mer model,
+    for the rescore without tables."""
+    from nadavca_tpu_torch import kmer_ids
+
     rng = np.random.default_rng(seed)
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
-    x = put(rng.normal(0, 1, (R, T)).astype(np.float32))
-    S = np.sort(rng.integers(0, T - 300, (R, L)), axis=1).astype(np.int32)
-    W = rng.integers(0, t_w + 1, (R, L)).astype(np.int32)
-    W[0, :8] = 0
-    kk = rng.integers(0, k + 2, (R, L)).astype(np.int32)     # 0 and k+1: no slot
-    codes = rng.integers(0, 4, (R, L)).astype(np.int32)
-    k4 = 4 * k
-    sg = rng.uniform(0.1, 0.4, (k4, R, L)).astype(np.float32)
-    em = (-np.log(sg) - 0.9189385).astype(np.float32)
-    em[rng.random((k4, R, L)) < 0.05] = -1e30                # dead slots
-    mu = rng.normal(0, 1, (k4, R, L)).astype(np.float32)
-    iv = (0.5 / (sg * sg)).astype(np.float32)
-    rows_p = 4096
-    tsg = rng.uniform(0.1, 0.4, (k4, rows_p)).astype(np.float32)
-    tab = np.stack([(-np.log(tsg) - 0.9189385).astype(np.float32),
-                    rng.normal(0, 1, (k4, rows_p)).astype(np.float32),
-                    (0.5 / (tsg * tsg)).astype(np.float32)])
-    woff = rng.integers(0, rows_p - L + 1, R).astype(np.int32)
-    woff[0], woff[-1] = 0, rows_p - L                        # both ends of the table
-    return dict(x=x, S=put(S), W=put(W), kk=put(kk), codes=put(codes), em=put(em),
-                mu=put(mu), iv=put(iv), tab=put(tab), woff=put(woff))
+    dev = codes.device
+    ids = np.stack([kmer_ids(c.astype(np.int8), k)[:N]
+                    for c in codes.cpu().numpy()]).astype(np.int32)
+    lm = rng.normal(0, 1, 4 ** k).astype(np.float32)
+    ls = rng.uniform(0.1, 0.4, 4 ** k).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (ids, lm, ls))
 
 
 def _local_tab_inputs(dev, T, k, seed, R=8, L=256, rows_p=4096):
@@ -221,9 +238,8 @@ def _local_tab_inputs(dev, T, k, seed, R=8, L=256, rows_p=4096):
 def test_rescore_kernels_match_plain_versions(card, k):
     from nadavca_tpu_torch.ops import cuda_rescore
 
-    R, L, T, t_w = 5, 200, 3000, 96          # no tile multiple is required
+    R, t_w = 5, 96
     cfg = AlignConfig(k=k)
-    d = _rescore_inputs(card, R, L, T, t_w, k, seed=k)
     before = [kern.launches for kern in cuda_rescore.KERNELS]
     counts_before = cuda_dp.path_counts.launches
 
@@ -246,37 +262,28 @@ def test_rescore_kernels_match_plain_versions(card, k):
     assert torch.equal(path_t, p_path)
     assert torch.equal(cnt, cuda_dp.path_counts_plain(p_path, 384, t_len_t))
 
-    # K4: a gather, equal; without the slab rule, and with it on a wide S
-    xs = cuda_rescore.shear_gather(d["x"], d["S"], t_w, slab=False)
-    assert torch.equal(xs, cuda_rescore.shear_gather_plain(d["x"], d["S"], t_w,
-                                                           slab=False))
-    S_slab = torch.nn.functional.pad(d["S"], (0, 56), mode="replicate").contiguous()
-    xs_slab = cuda_rescore.shear_gather(d["x"], S_slab, t_w, span=256)
-    p_slab = cuda_rescore.shear_gather_plain(d["x"], S_slab, t_w, span=256)
-    assert torch.equal(xs_slab, p_slab)
-    assert bool((p_slab == 0).all(dim=0).any()) and bool((p_slab != 0).any())
-
-    # K5 with K4 and the glue folded in: the slab rule with a TMA copy (T a
-    # multiple of 4), with the threads' copy (rows not 16-byte aligned), and
-    # below T = 2304 (the whole row, indices clamped); the same operations in
-    # the same order as the plain composition (-fmad=false)
+    # K5 and K6, each with K4 and the glue folded in: the slab rule with a
+    # TMA copy (T a multiple of 4), with the threads' copy (rows not 16-byte
+    # aligned), and below T = 2304 (the whole row, indices clamped); the same
+    # operations in the same order as the plain composition (-fmad=false),
+    # so equal to the bit
     for T_loc in (3000, 2561, 2000):
         a = _local_tab_inputs(card, T_loc, k, seed=k + T_loc)
         got = cuda_rescore.rescore_local_tab(*a, cfg, t_w)
         want = cuda_rescore.rescore_local_tab_plain(*a, cfg, t_w)
-        assert torch.equal(got == 0, want == 0), T_loc
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+        assert torch.equal(got, want), T_loc
         assert bool((want != 0).any(2).sum() > 200), T_loc
-    got = cuda_rescore.rescore_fill(xs, d["em"], d["mu"], d["iv"], d["W"], d["kk"],
-                                    d["codes"], cfg, t_w)
-    want = cuda_rescore.rescore_fill_plain(xs, d["em"], d["mu"], d["iv"], d["W"],
-                                           d["kk"], d["codes"], cfg, t_w)
-    live = want.abs() < 1e20                 # dead slots: ~-1e30 on both sides
-    assert torch.equal(live, got.abs() < 1e20)
-    assert float(((got - want).abs() * live).max()) <= 1e-4
+        x_l, path_l, t_len_l, cnt_l, codes_l = a[:5]
+        ids, lm, ls = _kmer_inputs(codes_l, k, a[-1], seed=T_loc)
+        args = (x_l, path_l, t_len_l, cnt_l, codes_l, ids, lm, ls, cfg, t_w)
+        got = cuda_rescore.rescore_local(*args)
+        want = cuda_rescore.rescore_local_plain(*args)
+        assert torch.equal(got, want), T_loc
+        live = (want != 0).any(2)
+        assert bool(live.sum() > 200) and not bool(live[3, 100:104].any()), T_loc
     torch.cuda.synchronize()
     assert [kern.launches for kern in cuda_rescore.KERNELS] == [
-        b + n for b, n in zip(before, (2, 3, 1))]
+        b + n for b, n in zip(before, (3, 3, 6))]
     assert cuda_dp.path_counts.launches == counts_before + 1
     a = list(_local_tab_inputs(card, 3000, k, seed=0))
     a[5] = a[5] + 1                          # the last read's offset leaves the table
@@ -304,11 +311,12 @@ def test_local_windows_on_the_card_needs_the_walks_counts(card):
 def test_a_cpu_run_launches_no_kernel(card):
     from nadavca_tpu_torch.ops import cuda_rescore
 
-    d = _rescore_inputs(torch.device("cpu"), 2, 128, 2600, 32, 6, seed=0)
+    cpu = torch.device("cpu")
     before = [kern.launches for kern in cuda_dp.COUNTERS + cuda_rescore.KERNELS]
-    cuda_rescore.shear_gather(d["x"], d["S"], 32)
-    cuda_rescore.rescore_local_tab(*_local_tab_inputs(torch.device("cpu"), 2600, 6, 0),
-                                   AlignConfig(), 32)
+    a = _local_tab_inputs(cpu, 2600, 6, 0)
+    cuda_rescore.rescore_local_tab(*a, AlignConfig(), 32)
+    cuda_rescore.rescore_local(*a[:5], *_kmer_inputs(a[4], 6, a[-1], 0), AlignConfig(),
+                               32)
     assert [kern.launches for kern in cuda_dp.COUNTERS + cuda_rescore.KERNELS] == before
 
 
@@ -338,7 +346,8 @@ def test_call_snps_at_band_width_384(card):
     alns = api.align_reads(reference, raws, device="cuda", **kw)
     torch.cuda.synchronize()
     got = _launches()
-    assert got["backtrack"] > before["backtrack"] and got["band_gather"] == before["band_gather"]
+    assert got["backtrack"] > before["backtrack"]
+    assert got["band_gather_folded"] - before["band_gather_folded"] == got["viterbi_fill"] - before["viterbi_fill"]
     c_calls = api.call_snps_reads(reference, raws, device="cpu", **kw)
     c_alns = api.align_reads(reference, raws, device="cpu", **kw)
     key = lambda c: (c.contig, c.position, c.ref_base, c.alt_base, c.coverage)
@@ -354,3 +363,54 @@ def test_call_snps_at_band_width_384(card):
     with pytest.raises(ValueError, match="exceeds 1024"):
         api.call_snps_reads(reference, raws[:1], config=AlignConfig(band_width=1152),
                             model=model, device="cuda")
+
+
+def test_align_reads_with_pair_step(card):
+    """``dp_pair_step=True`` end to end on the card: the two-sample fill
+    gathering its own band levels, then the walk and the local rescore. The
+    same alignments as the CPU run of the same reads, where the plain
+    versions run the same operations; a read may differ only where a sample
+    sits on one of two positions with identical levels (logf on the card, log
+    on the CPU, can break such a tie either way). The pair body's own path
+    defect is the same on both sides."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import api
+    from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
+
+    rng = np.random.default_rng(8)
+    model = nt.default_model()
+    genome = random_genome(rng, length=3000)
+    reads = [simulate_read(genome, genome.contigs[0].name, model, rng, read_len=500,
+                           read_id=f"p{i:03d}") for i in range(40)]
+    raws = [api.raw_read_from_simulated(r) for r in reads]
+    kw = dict(config=AlignConfig(dp_pair_step=True), model=model, batch_reads=32,
+              prep="python")
+    before = _launches()
+    alns = api.align_reads(genome, raws, device="cuda", **kw)
+    torch.cuda.synchronize()
+    got = _launches()
+    n_b = got["viterbi_fill_pair"] - before["viterbi_fill_pair"]
+    assert n_b == 2 and got["viterbi_fill"] == before["viterbi_fill"]
+    assert got["band_gather_folded"] - before["band_gather_folded"] == n_b
+    c_alns = api.align_reads(genome, raws, device="cpu", **kw)
+    assert [a.read_id for a in alns] == [a.read_id for a in c_alns] and len(alns) >= 36
+    records = {r.read_id: r for r in api._preprocess(raws, genome, model, kw["config"],
+                                                      prep="python")}
+    n_tied = 0
+    for a, b in zip(alns, c_alns):
+        assert abs(a.score - b.score) <= 2e-3 * max(1.0, abs(b.score))
+        if np.array_equal(a.seg_start, b.seg_start) and np.array_equal(a.seg_end, b.seg_end):
+            np.testing.assert_allclose(a.base_loglik, b.base_loglik, rtol=1e-5, atol=1e-3)
+            continue
+        n = int(max(a.seg_end.max(), b.seg_end.max()))
+        pa, pb = np.full(n, -1), np.full(n, -1)
+        for p_, al in ((pa, a), (pb, b)):
+            for pos in np.nonzero(al.seg_start >= 0)[0]:
+                p_[al.seg_start[pos]:al.seg_end[pos]] = pos
+        t = np.nonzero(pa != pb)[0]
+        mu, sigma = records[a.read_id].mu, records[a.read_id].sigma
+        assert ((pa[t] >= 0) & (pb[t] >= 0)).all()
+        assert ((mu[pa[t]] == mu[pb[t]]) & (sigma[pa[t]] == sigma[pb[t]])
+                & (np.abs(pa[t] - pb[t]) <= 2)).all(), a.read_id
+        n_tied += 1
+    assert n_tied <= 2, n_tied

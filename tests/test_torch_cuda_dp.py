@@ -96,7 +96,8 @@ def case(request):
 
 def test_band_gather_matches_pallas(case):
     t = case["t"]
-    mu_b, sg_b = cuda_dp.band_gather(t["mu"], t["sigma"], t["lo"], case["B"])
+    # the plain version of the gather the fills' producer warps make
+    mu_b, sg_b = cuda_dp.band_gather_plain(t["mu"], t["sigma"], t["lo"], case["B"])
     # a gather moves values and computes nothing: exact
     np.testing.assert_array_equal(mu_b.numpy(), case["mu_b"])
     np.testing.assert_array_equal(sg_b.numpy(), case["sg_b"])
@@ -266,10 +267,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     tpipe.check_supported(AlignConfig(band_width=1152), "cuda", "cpu")
     tpipe.check_supported(AlignConfig(band_width=1152), "scan", "cuda")
     with pytest.raises(ValueError):         # non-contiguous levels
-        cuda_dp.band_gather(torch.zeros((64, 8)).T, torch.ones((8, 64)), lo, 128)
+        cuda_dp.viterbi_fill(x, i, torch.zeros((200, 8)).T, band, lo, lo, i, cfg)
     with pytest.raises(TypeError):          # int64 band starts
-        cuda_dp.band_gather(torch.zeros((8, 64)), torch.ones((8, 64)),
-                            lo.long(), 128)
+        cuda_dp.viterbi_fill(x, i, band, band, lo.long(), lo, i,
+                             AlignConfig(dp_pair_step=True))
     # the skip transition gives two decision planes, and the walk takes both
     decs, _, _ = cuda_dp.viterbi_fill(x, i, band, band, lo, lo, i,
                                       AlignConfig(use_skip=True))
@@ -279,6 +280,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         cuda_dp.backtrack(decs[0], lo, lo, i, 128)
     # on the CPU the plain versions run and no kernel launch is counted
     before = [k.launches for k in cuda_dp.COUNTERS]
-    cuda_dp.band_gather(torch.zeros((8, 64)), torch.ones((8, 64)), lo, 128)
+    cuda_dp.viterbi_fill(x, i, band, band, lo, lo, i, AlignConfig(dp_pair_step=True))
     cuda_dp.viterbi_fill(x, i, band, band, lo, lo, i, cfg)
     assert [k.launches for k in cuda_dp.COUNTERS] == before

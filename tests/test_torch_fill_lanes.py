@@ -23,6 +23,8 @@ ending inside a lane, and a band that runs past N inside a lane. The kernel itse
 the card (``tests/test_torch_card.py``, ``chip_smoke.py``).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -223,3 +225,194 @@ def test_lane_model_matches_the_plain_fill(B, skip, C):
     assert np.array_equal(live, v > NEG_INF / 2)
     assert float((np.abs(v - p_v) * live).max()) <= 1e-3
     np.testing.assert_allclose(acc, p_acc.numpy(), rtol=1e-5, atol=1e-3)
+
+
+# ------------------------------------------------------- the two-sample fill
+def lane_fill_pair(x, t_len, mu_rows, sg_rows, lo, delta, n_ref, cfg, S, W,
+                   mutate=None):
+    """The two-sample fill's mapping (``viterbi_fill_pair_kernel``) for every
+    read at once: the band in W chain warps of S slots a lane, the last warp
+    reaching past B when B is not a multiple of 32 * S; a pair of samples per
+    step, its first a free start at t = 0 and a half pair where a read ends
+    after the first sample; e1, e2 of the lane's slots and e1 of slot j0 - 1
+    from its producer, which gathers S + 1 levels from j0 - 1 a chunk; v[j-1]
+    and v[j-2] by shuffle-up, lane 0 of a warp from the ring of two values a
+    pair its left warp fed. ``mutate="e1m_own"`` takes e1[j-1] of a lane's
+    slot 0 from its own slot (the edge missed). Returns (decs, V, acc)."""
+    R, T = x.shape
+    N = mu_rows.shape[1]
+    B, C = cfg.band_width, cfg.signal_chunk
+    Bp = 32 * S * W
+    assert Bp - 32 * S < B <= Bp and B % 32 == 0
+    n_chunks, gpc = T // C, C // 32
+    cs_d, cm_d = cfg.log_p_stay, cfg.log_p_move
+    cs, cm = f32(cs_d), f32(cm_d)
+    cs2, csm, cm2 = f32(cs_d + cs_d), f32(cs_d + cm_d), f32(cm_d + cm_d)
+    lane = np.arange(32)
+    j = (32 * S * np.arange(W)[:, None, None] + S * lane[None, :, None]
+         + np.arange(S)[None, None, :])                       # (W, 32, S) slots
+    j_edge = j[:, :, 0] - 1                                   # (W, 32): slot j0 - 1
+    live_lane = (j[:, :, 0] < B)                              # lanes inside the band
+    v = np.full((R, W, 32, S), NEG_INF, f32)
+    acc = np.zeros(R, f32)
+    decs = np.zeros((T // 32, R, Bp), np.uint32)
+    ring = np.zeros((R, W, RING_HALVES, 2, HALF), f32)
+    tl = t_len.astype(np.int64)[:, None]                      # (R, 1)
+    rows = np.arange(R)
+
+    def consts(pos, c):
+        """mu, em_const, inv2v of positions ``pos`` (W, 32[, S]) in chunk c,
+        as the producers gather and compute them."""
+        p = lo[:, c].astype(np.int64).reshape((R,) + (1,) * pos.ndim) + pos[None]
+        inside = (p >= 0) & (p < N)
+        at = (rows.reshape((R,) + (1,) * pos.ndim), np.clip(p, 0, N - 1))
+        mu = np.where(inside, mu_rows[at], f32(0))
+        sg = np.where(inside, sg_rows[at], f32(1))
+        log_sg = torch.log(torch.from_numpy(sg)).numpy()
+        valid = p < n_ref.astype(np.int64).reshape((R,) + (1,) * pos.ndim)
+        em = np.where(valid, -log_sg - HALF_LOG_2PI, NEG_INF).astype(f32)
+        return mu, em, f32(0.5) / (sg * sg)
+
+    def emit(q, xv):
+        mu, em, iv = q
+        d = xv - mu
+        return em - (d * d) * iv
+
+    for c in range(n_chunks):
+        t0 = c * C
+        if c > 0:
+            row = v.reshape(R, Bp)
+            src = j[None] + delta[:, c].astype(np.int64)[:, None, None, None]
+            ok = (src >= 0) & (src < B)
+            v = np.where(ok, row[rows[:, None, None, None], np.clip(src, 0, Bp - 1)],
+                         NEG_INF).astype(f32)
+        q_s = consts(j, c)                                    # (R, W, 32, S) each
+        q_e = consts(j_edge, c)                               # (R, W, 32) each
+        for g in range(gpc):
+            G = c * gpc + g
+            pk = np.zeros((R, W, 32, S), np.uint32)
+            for half in range(2):
+                h = 2 * G + half
+                slot = h % RING_HALVES
+                for w in range(W):                            # the wavefront
+                    q = v[:, w]                               # (R, 32, S), a view
+                    for u in range(HALF // 2):
+                        s = HALF * half + 2 * u               # bit of the first sample
+                        t = t0 + 32 * g + s
+                        x1 = x[:, t][:, None, None]
+                        x2 = x[:, t + 1][:, None, None]
+                        e1 = emit(tuple(a[:, w] for a in q_s), x1)
+                        e2 = emit(tuple(a[:, w] for a in q_s), x2)
+                        e1m0 = emit(tuple(a[:, w] for a in q_e), x1[..., 0])
+                        e1m0 = np.where(j_edge[w] < 0, NEG_INF, e1m0).astype(f32)
+                        if mutate == "e1m_own":
+                            e1m0 = e1[:, :, 0]
+                        e1m = np.concatenate([e1m0[..., None], e1[..., :-1]], axis=2)
+                        if w + 1 < W:                         # lane 31 feeds the ring
+                            ring[:, w, slot, 0, u] = q[:, 31, S - 1]
+                            ring[:, w, slot, 1, u] = q[:, 31, S - 2]
+                        l1 = ring[:, w - 1, slot, 0, u][:, None] if w else NEG_INF
+                        l2 = ring[:, w - 1, slot, 1, u][:, None] if w else NEG_INF
+                        left1 = np.where(lane == 0, l1, shfl_up(q[:, :, S - 1]))
+                        left2 = np.where(lane == 0, l2, shfl_up(q[:, :, S - 2]))
+                        vm1 = np.concatenate([left1[..., None], q[..., :-1]], axis=2)
+                        vm2 = np.concatenate([left2[..., None], left1[..., None],
+                                              q[..., :-2]], axis=2)[..., :S]
+                        act1 = (t < tl)[:, :, None]           # (R, 1, 1)
+                        act2 = (t + 1 < tl)[:, :, None]
+                        bit_lo = np.uint32(1 << s)
+                        bit_hi = np.uint32(2 << s)
+                        if t == 0:
+                            stay_f = e1 + cs
+                            move_f = e1m + cm
+                            new = e2 + np.maximum(stay_f, move_f)
+                            hi = (move_f > stay_f) & act2
+                            pk[:, w] |= np.where(hi, bit_hi, np.uint32(0))
+                            q[:] = np.where(act2, new, np.where(act1, e1, q))
+                            continue
+                        K0 = e1 + cs2
+                        b_dec = e1m > e1
+                        K1 = np.maximum(e1, e1m) + csm
+                        K2 = e1m + cm2
+                        c0 = q + K0
+                        c1 = vm1 + K1
+                        c2 = vm2 + K2
+                        a1 = c1 > c0
+                        m01 = np.maximum(c0, c1)
+                        a2 = c2 > m01
+                        new = e2 + np.maximum(m01, c2)
+                        stay_h = q + cs
+                        move_h = vm1 + cm
+                        new_h = e1 + np.maximum(stay_h, move_h)
+                        hi = (a2 | (a1 & b_dec)) & act2
+                        lo_b = ((a2 | (a1 & ~b_dec)) & act2) | ((move_h > stay_h) & act1 & ~act2)
+                        pk[:, w] |= np.where(hi, bit_hi, np.uint32(0))
+                        pk[:, w] |= np.where(lo_b, bit_lo, np.uint32(0))
+                        q[:] = np.where(act2, new, np.where(act1, new_h, q))
+            decs[G] = pk.reshape(R, Bp)
+        # chunk-end maximum over the slots inside the band
+        vm = np.where(live_lane[None, :, :, None], v, NEG_INF)
+        m = warp_max(vm.max(axis=3)).max(axis=1)
+        m = np.where(m > NEG_INF / 2, m, f32(0)).astype(f32)
+        v = (v - m[:, None, None, None]).astype(f32)
+        acc = (acc + m).astype(f32)
+    return (decs[:, :, :B].view(np.int32),), v.reshape(R, Bp)[:, :B], acc
+
+
+PAIR_SHAPES = [(64, 128), (96, 128), (128, 128), (384, 128), (128, 32)]
+
+
+def _pair_cfg(B, C):
+    """The two-sample configuration at band width B. The kernel takes any
+    multiple of 32, ``AlignConfig`` multiples of 128: below that a stand-in
+    with the same fields drives the plain versions."""
+    if B % 128 == 0:
+        return AlignConfig(band_width=B, signal_chunk=C, dp_pair_step=True)
+    d = AlignConfig()
+    return types.SimpleNamespace(band_width=B, signal_chunk=C, dp_pair_step=True,
+                                 use_skip=False, log_p_stay=d.log_p_stay,
+                                 log_p_move=d.log_p_move)
+
+
+def _pair_case(B, C):
+    S, W = cuda_dp.fill_layout(B, pair_step=True)
+    cfg = _pair_cfg(B, C)
+    arrays = list(fill_inputs(B, C, S, seed=B + C + 5))
+    t_len = arrays[1]
+    T = arrays[0].shape[1]
+    # odd and even lengths, reads shorter than one chunk, a free start alone
+    # and a free start with one step
+    t_len[:] = [0, 1, 2, 33, T, T - 7, C + 3]
+    return S, W, cfg, arrays
+
+
+@pytest.mark.parametrize("B, C", PAIR_SHAPES)
+def test_pair_lane_model_matches_the_plain_pair_fill(B, C):
+    S, W, cfg, arrays = _pair_case(B, C)
+    assert S in (2, 4) and 1 <= W <= 8 and 32 * S * W >= B
+    (dec,), v, acc = lane_fill_pair(*arrays, cfg, S, W)
+    x, t_len, mu, sigma, lo, delta, n_ref = (torch.from_numpy(a) for a in arrays)
+    mu_b, sg_b = cuda_dp.band_gather_plain(mu, sigma, lo, B)
+    (p_dec,), p_v, p_acc = cuda_dp.viterbi_fill_pair_plain(x, t_len, mu_b, sg_b, lo,
+                                                           delta, n_ref, cfg)
+    # the wrapper on CPU tensors composes the same two plain versions
+    (w_dec,), w_v, w_acc = cuda_dp.viterbi_fill(x, t_len, mu, sigma, lo, delta, n_ref,
+                                                cfg)
+    assert torch.equal(w_dec, p_dec) and torch.equal(w_v, p_v) and torch.equal(w_acc, p_acc)
+    np.testing.assert_array_equal(dec, p_dec.numpy())
+    assert int(np.count_nonzero(dec)) > 0
+    np.testing.assert_array_equal(v, p_v.numpy())
+    np.testing.assert_array_equal(acc, p_acc.numpy())
+
+
+def test_pair_lane_model_mutation_is_caught():
+    """The model with e1[j-1] of a lane's slot 0 taken from its own slot, not
+    from the slot to its left: the plain version tells it apart."""
+    B, C = 128, 128
+    S, W, cfg, arrays = _pair_case(B, C)
+    (dec,), v, _ = lane_fill_pair(*arrays, cfg, S, W, mutate="e1m_own")
+    x, t_len, mu, sigma, lo, delta, n_ref = (torch.from_numpy(a) for a in arrays)
+    mu_b, sg_b = cuda_dp.band_gather_plain(mu, sigma, lo, B)
+    (p_dec,), p_v, _ = cuda_dp.viterbi_fill_pair_plain(x, t_len, mu_b, sg_b, lo, delta,
+                                                       n_ref, cfg)
+    assert not np.array_equal(dec, p_dec.numpy()) or not np.array_equal(v, p_v.numpy())

@@ -78,13 +78,13 @@ def test_every_kernel_source_has_a_declared_entry_point():
                                    open(src).read()))
     declared = set(re.findall(r"lib\.(nadavca_\w+)\.argtypes",
                               open(kernel_build.__file__).read()))
-    # nine launchers (the path counts run inside the walk's) and the error
-    # string, plus the fill's two explicit-layout launchers and its layout table
-    assert exported == declared and len(exported) == 13, (exported ^ declared)
+    # seven launchers (the path counts run inside the walk's, the band and
+    # shear gathers inside the fills and the rescores) and the error string,
+    # plus the fills' three explicit-layout launchers and their layout table
+    assert exported == declared and len(exported) == 12, (exported ^ declared)
     names = {os.path.basename(s) for s in kernel_build.sources()}
-    # the path counts are the walk's epilogue (backtrack.cu), not a source
-    assert {"backtrack.cu", "shear_gather.cu", "rescore.cu",
-            "viterbi_fill_pair.cu"} <= names and "path_counts.cu" not in names
+    # the folded kernels are no sources of their own
+    assert names == {"backtrack.cu", "rescore.cu", "viterbi_fill.cu"}, names
 
 
 def test_default_model_and_config_match_the_jax_package():

@@ -132,9 +132,9 @@ def test_shear_gather_plain_matches_pallas(break_tiles):
     base = np.asarray(pallas_rescore.shear_slab_base(jnp.asarray(S), T, span))
     got_base = cuda_rescore.shear_slab_base(_t(S), T, span)
     np.testing.assert_array_equal(got_base.numpy(), base)
-    before = cuda_rescore.shear_gather.launches
-    got = cuda_rescore.shear_gather(_t(x), _t(S), tw, span=span).numpy()
-    assert cuda_rescore.shear_gather.launches == before
+    before = cuda_rescore.shear_gather_folded.launches
+    got = cuda_rescore.shear_gather_plain(_t(x), _t(S), tw, span=span).numpy()
+    assert cuda_rescore.shear_gather_folded.launches == before
     # a gather computes nothing: equal, the zeros of broken tiles included
     np.testing.assert_array_equal(got, want)
     d = S.reshape(8, 2, 128) - base[:, :, None]
@@ -151,11 +151,11 @@ def test_shear_gather_without_slab_clamps():
     R, T, L, tw = 3, 300, 40, 32
     x = rng.normal(size=(R, T)).astype(np.float32)
     S = np.sort(rng.integers(0, T, size=(R, L)), axis=1).astype(np.int32)
-    got = cuda_rescore.shear_gather(_t(x), _t(S), tw, slab=False).numpy()
+    got = cuda_rescore.shear_gather_plain(_t(x), _t(S), tw, slab=False).numpy()
     idx = np.clip(S[None] + np.arange(tw)[:, None, None], 0, T - 1)
     np.testing.assert_array_equal(got, x[np.arange(R)[None, :, None], idx])
     with pytest.raises(ValueError):          # the slab rule needs long rows
-        cuda_rescore.shear_gather(_t(x), _t(S), tw, slab=True)
+        cuda_rescore.shear_gather_plain(_t(x), _t(S), tw, slab=True)
 
 
 # --------------------------------------------- a preprocessed batch with tables
@@ -206,8 +206,8 @@ def dp_inputs(world):
     x, path, t_len, codes, ids, lm, ls = _common(world["arrs"], _t)
     N = ids.shape[1]
     S, W, kk, p_lo, _ = cuda_rescore.local_windows(path, t_len, codes, N, k, t_w)
-    xs = cuda_rescore.shear_gather(x, S.clamp(0, x.shape[1] - 1).contiguous(),
-                                   t_w, slab=False)
+    xs = cuda_rescore.shear_gather_plain(x, S.clamp(0, x.shape[1] - 1).contiguous(),
+                                         t_w, slab=False)
     em, mu, iv, _ = cuda_rescore.batch_constants(p_lo, kk, codes, ids, lm, ls, k)
     return dict(t_w=t_w, xs=xs, W=W.contiguous(), kk=kk.contiguous(),
                 codes=codes.clamp(0, 3), em=em, mu=mu, iv=iv)
@@ -246,9 +246,10 @@ def test_rescore_fill_plain_matches_pallas(world, dp_inputs):
     want = np.asarray(pallas_rescore.rescore_fill_pallas(
         *(jnp.asarray(d[n].numpy()) for n in names), JCFG, d["t_w"],
         interpret=True))
-    before = cuda_rescore.rescore_fill.launches
-    got = cuda_rescore.rescore_fill(*(d[n] for n in names), TCFG, d["t_w"]).numpy()
-    assert cuda_rescore.rescore_fill.launches == before
+    before = [kern.launches for kern in cuda_rescore.KERNELS]
+    got = cuda_rescore.rescore_fill_plain(*(d[n] for n in names), TCFG,
+                                          d["t_w"]).numpy()
+    assert [kern.launches for kern in cuda_rescore.KERNELS] == before
     live = _live(d, k)
     np.testing.assert_allclose(got[:, live], want[:, live], **TOL)
     assert np.isfinite(got).all()
@@ -256,7 +257,7 @@ def test_rescore_fill_plain_matches_pallas(world, dp_inputs):
 
 def test_rescore_wrappers_refuse_bad_arguments(world, dp_inputs):
     d = dp_inputs
-    x, path, t_len, codes, ids, _, _ = _common(world["arrs"], _t)
+    x, path, t_len, codes, ids, lm, ls = _common(world["arrs"], _t)
     tt = world["tt"]
     args = (x, path, t_len, None, codes)
     tail = (tt.tab, tt.valid, ids.shape[1], TCFG, d["t_w"])
@@ -277,8 +278,18 @@ def test_rescore_wrappers_refuse_bad_arguments(world, dp_inputs):
             d["xs"], d["W"], d["kk"], d["codes"], torch.full((8,), -1, dtype=torch.int32),
             tt.tab, TCFG, d["t_w"])
     with pytest.raises(ValueError):
-        cuda_rescore.rescore_fill(d["xs"], d["em"][:20], d["mu"], d["iv"],
-                                  d["W"], d["kk"], d["codes"], TCFG, d["t_w"])
+        cuda_rescore.rescore_fill_plain(d["xs"], d["em"][:20], d["mu"], d["iv"],
+                                        d["W"], d["kk"], d["codes"], TCFG, d["t_w"])
+    # the no-tables rescore: the k-mer model must be float32 vectors, the
+    # position axis whole tiles, the ids (R, N)
+    local = (x, path, t_len, None, codes)
+    with pytest.raises(TypeError):
+        cuda_rescore.rescore_local(*local, ids, lm.double(), ls, TCFG, d["t_w"])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_rescore.rescore_local(x, path, t_len, None, codes[:, :200], ids, lm, ls,
+                                   TCFG, d["t_w"])
+    with pytest.raises(ValueError):
+        cuda_rescore.rescore_local(*local, ids[:4], lm, ls, TCFG, d["t_w"])
 
 
 # ----------------------------------------- base_loglik_local_cuda as a whole
@@ -515,15 +526,24 @@ F32 = np.float32
 LT, SPAN, SLAB = 128, 2048, 2048 + 256
 
 
-def local_tab_model(x, path, t_len, cnt, codes, woff, tab, valid, N, k, t_w, cfg):
-    """``csrc/rescore.cu`` rescore_local_tab_kernel in numpy, for the test
-    only: one block per (read, 128-position tile), a position's window from
-    the counts and the path's two ends, the tile's slab base from the block
-    minimum, the samples from the staged slab (or the whole row with its last
-    sample repeated t_w times, below T = 2304), the masks, the positions
-    ranked by falling window length and taken 8 at a time, the DP per base
-    on the slab at offset S_c - base, and the reference base's value from
-    the same position. Returns (R, L, 4) float32."""
+def local_tile_model(x, path, t_len, cnt, codes, N, k, t_w, cfg, tables=None,
+                     kmers=None, mutate=None):
+    """``csrc/rescore.cu`` rescore_tile in numpy, for the test only: one block
+    per (read, 128-position tile), a position's window from the counts and
+    the path's two ends, the tile's slab base from the block minimum, the
+    samples from the staged slab (or the whole row with its last sample
+    repeated t_w times, below T = 2304), the masks, the positions ranked by
+    falling window length and taken 8 at a time, the DP per base on the slab
+    at offset S_c - base, and the reference base's value from the same
+    position. ``tables`` = (woff, tab, valid): the tables kernel, constants
+    from the genome table and kk == k required. ``kmers`` = (ids, em_k, mu_k,
+    ``kmers`` = (ids, level_mean, level_std): the kernel without
+    tables, constants gathered from the per-k-mer vectors of
+    ``cuda_rescore.kmer_constants``, a clipped window scored on its kk live
+    slots, every live slot a real k-mer. Mutations: "edge_masked" masks
+    kk < k without tables as the tables kernel does; "logf" makes each
+    emission constant by one rounding of a double log, as a kernel that took
+    its own log would, instead of gathering it. Returns (R, L, 4) float32."""
     R, T = x.shape
     L = codes.shape[1]
     lps, lpm = F32(cfg.log_p_stay), F32(cfg.log_p_move)
@@ -540,7 +560,8 @@ def local_tab_model(x, path, t_len, cnt, codes, woff, tab, valid, N, k, t_w, cfg
             S = cnt[r, ic].astype(np.int64)
             W = np.clip(cnt[r, ie + 1] - S, 0, t_w)
             S_c = np.clip(S, 0, T - 1)
-            kk = np.minimum(ie, last) - np.maximum(ic, first) + 1
+            p_lo = np.maximum(ic, first)
+            kk = np.minimum(ie, last) - p_lo + 1
             code = codes[r, i]
             if rule:
                 base = (min(max(int(S_c.min()), 0), T - SLAB) // LT) * LT
@@ -551,8 +572,24 @@ def local_tab_model(x, path, t_len, cnt, codes, woff, tab, valid, N, k, t_w, cfg
             off = S_c - base
             if rule:
                 W = np.where((off >= 0) & (off < SPAN), W, 0)      # the span mask
-            col = woff[r] + i
-            ok = (kk > 0) & (code < 4) & (kk == k) & valid[col] & (W > 0)
+            ok = (kk > 0) & (code < 4) & (W > 0)
+            jj = np.arange(k)
+            if tables is not None:
+                woff, tab, valid = tables
+                col = woff[r] + i
+                ok &= (kk == k) & valid[col]
+            else:
+                ids, lm, ls = kmers
+                em_k, mu_k, iv_k = (a.numpy() for a in cuda_rescore.kmer_constants(
+                    torch.from_numpy(lm), torch.from_numpy(ls)))
+                if mutate == "logf":
+                    em_k = (-np.log(ls.astype(np.float64))
+                            - 0.5 * np.log(2 * np.pi)).astype(F32)
+                p = p_lo[:, None] + jj[None, :]                   # (LT, k)
+                ids_p = ids[r, np.clip(p, 0, N - 1)]
+                ok &= ((jj[None, :] >= kk[:, None]) | (ids_p >= 0)).all(1)
+                if mutate == "edge_masked":
+                    ok &= kk == k
             w_ok = np.where(ok, W, 0)
             # rank: falling window length, ties by position; perm[rank] = t
             t = np.arange(LT)
@@ -566,13 +603,25 @@ def local_tab_model(x, path, t_len, cnt, codes, woff, tab, valid, N, k, t_w, cfg
                 if not live.any():
                     out[r, i[q]] = 0
                     continue
-                # constants (k, 8, 4): slot j, base b of table row j * 4 + b
-                em, mu, iv = (tab[p][np.arange(k)[:, None, None] * 4
-                                     + np.arange(4)[None, None, :], col[q][None, :, None]]
-                              for p in range(3))
+                b_id = np.arange(4)[None, None, :]
+                if tables is not None:
+                    # constants (k, 8, 4): slot j, base b of table row j * 4 + b
+                    em, mu, iv = (tab[pl][jj[:, None, None] * 4 + b_id,
+                                          col[q][None, :, None]] for pl in range(3))
+                    slot = np.full(8, k - 1)                     # kk == k
+                else:
+                    pq = p[q].T[:, :, None]                      # (k, 8, 1)
+                    idq = ids_p[q].T[:, :, None]
+                    o_w = i[q][None, :, None] - pq
+                    w4 = np.where((o_w >= 0) & (o_w < k), 4 ** (k - 1 - np.clip(o_w, 0, k - 1)), 0)
+                    nid = np.clip(idq + (b_id - code[q][None, :, None]) * w4, 0, len(em_k) - 1)
+                    dead = (jj[:, None, None] >= kk[q][None, :, None]) | (idq < 0)
+                    em = np.where(dead, neg, em_k[nid])
+                    mu, iv = mu_k[nid], iv_k[nid]
+                    slot = np.clip(kk[q] - 1, 0, k - 1)
                 wq, off_q = w_ok[q], np.where(live, off[q], 0)
                 d0 = slab[off_q][None, :, None] - mu
-                v = np.where(np.arange(k)[:, None, None] == 0, em - d0 * d0 * iv, neg)
+                v = np.where(jj[:, None, None] == 0, em - d0 * d0 * iv, neg)
                 for s in range(1, int(wq.max())):
                     xs = slab[np.where(s < wq, off_q + s, 0)][None, :, None]
                     d = xs - mu
@@ -580,7 +629,7 @@ def local_tab_model(x, path, t_len, cnt, codes, woff, tab, valid, N, k, t_w, cfg
                     move = np.concatenate([np.full((1, 8, 4), neg, F32), v[:-1]]) + lpm
                     new = emit + np.maximum(v + lps, move)
                     v = np.where((s < wq)[None, :, None], new, v)
-                o = v[k - 1]                                      # (8, 4): kk == k
+                o = v[slot, np.arange(8)]                         # (8, 4)
                 ref = o[np.arange(8), np.clip(code[q], 0, 3)]
                 out[r, i[q]] = np.where(live[:, None], o - ref[:, None], F32(0))
     return out
@@ -620,36 +669,45 @@ def _dwell_case(T, seed=9):
         path[r, len(p):] = p[-1]
     x = rng.normal(size=(R, T)).astype(np.float32)
     tab, valid, woff = _random_tables(rng, k, 2048, R, L)
+    ids = np.stack([kmer_ids(c.astype(np.int8), k) for c in codes]).astype(np.int32)
     return dict(x=x, path=path, t_len=t_len, codes=codes, woff=woff, tab=tab,
-                valid=valid, N=N, k=k, t_w=t_w)
+                valid=valid, N=N, k=k, t_w=t_w, ids=ids,
+                lm=model.level_mean.astype(np.float32),
+                ls=model.level_std.astype(np.float32))
 
 
 def _world_case(world):
     a, tt = world["arrs"], world["tt"]
     return dict(x=a["x"], path=a["path"], t_len=a["t_len"], codes=a["codes"],
                 woff=world["woff"], tab=tt.tab.numpy(), valid=tt.valid.numpy(),
-                N=a["ids"].shape[1], k=world["model"].k, t_w=96)
+                N=a["ids"].shape[1], k=world["model"].k, t_w=96, ids=a["ids"],
+                lm=a["lm"], ls=a["ls"])
 
 
-@pytest.mark.parametrize("case", ["slab_rule_span_masked", "short_rows_no_slab",
-                                  "world_clipped_base"])
+TILE_CASES = ["slab_rule_span_masked", "short_rows_no_slab", "world_clipped_base"]
+
+
+def _tile_case(case, world):
+    if case == "slab_rule_span_masked":
+        return _dwell_case(2560)
+    if case == "short_rows_no_slab":
+        return _dwell_case(2303)       # no slab rule: sample indices clamp
+    return _world_case(world)          # T = 2816: the base clips to T - 2304
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
 def test_local_tab_tile_model_matches_the_plain_composition(case, world):
     """The fused kernel's mapping (numpy model) bit for bit against
     ``rescore_local_tab_plain`` — the composition the kernel replaces —
     and through ``base_loglik_local_cuda``."""
-    if case == "slab_rule_span_masked":
-        d = _dwell_case(2560)
-    elif case == "short_rows_no_slab":
-        d = _dwell_case(2303)          # no slab rule: sample indices clamp
-    else:
-        d = _world_case(world)         # T = 2816: the base clips to T - 2304
+    d = _tile_case(case, world)
     R, T = d["x"].shape
     k, N, t_w = d["k"], d["N"], d["t_w"]
     cfg = AlignConfig(k=k)
     cnt = cuda_dp.path_counts_plain(_t(d["path"]), cuda_rescore.count_lanes(N),
                                     _t(d["t_len"]))
-    want = local_tab_model(d["x"], d["path"], d["t_len"], cnt.numpy(), d["codes"],
-                           d["woff"], d["tab"], d["valid"], N, k, t_w, cfg)
+    want = local_tile_model(d["x"], d["path"], d["t_len"], cnt.numpy(), d["codes"], N, k,
+                            t_w, cfg, tables=(d["woff"], d["tab"], d["valid"]))
     before = [kern.launches for kern in cuda_rescore.KERNELS]
     args = (_t(d["x"]), _t(d["path"]), _t(d["t_len"]), cnt, _t(d["codes"]),
             _t(d["woff"]), _t(d["tab"]), _t(d["valid"]), N, cfg, t_w)
@@ -688,3 +746,70 @@ def test_local_tab_tile_model_matches_the_plain_composition(case, world):
         _t(d["x"]), _t(d["path"]), _t(d["t_len"]), _t(d["codes"]), ids, lm, lm, k, cfg,
         t_w=t_w, tables=tabs, window_off=_t(d["woff"]), cnt=cnt).numpy()
     np.testing.assert_array_equal(whole, want)
+
+
+def _kmer_model(d, cfg, mutate=None):
+    cnt = cuda_dp.path_counts_plain(_t(d["path"]), cuda_rescore.count_lanes(d["N"]),
+                                    _t(d["t_len"]))
+    got = local_tile_model(d["x"], d["path"], d["t_len"], cnt.numpy(), d["codes"],
+                           d["N"], d["k"], d["t_w"], cfg,
+                           kmers=(d["ids"], d["lm"], d["ls"]), mutate=mutate)
+    return got, cnt
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_local_tile_model_without_tables_matches_the_plain_composition(case, world):
+    """The no-tables kernel's mapping (numpy model: constants gathered from
+    the per-k-mer vectors, clipped windows on their live slots, slots without
+    a real k-mer) bit for bit against ``rescore_local_plain`` — the
+    composition the kernel replaces — and through ``base_loglik_local_cuda``
+    without tables."""
+    d = _tile_case(case, world)
+    R, T = d["x"].shape
+    k, N, t_w = d["k"], d["N"], d["t_w"]
+    cfg = AlignConfig(k=k)
+    want, cnt = _kmer_model(d, cfg)
+    before = [kern.launches for kern in cuda_rescore.KERNELS]
+    args = (_t(d["x"]), _t(d["path"]), _t(d["t_len"]), cnt, _t(d["codes"]), _t(d["ids"]),
+            _t(d["lm"]), _t(d["ls"]), cfg, t_w)
+    got = cuda_rescore.rescore_local(*args).numpy()
+    assert [kern.launches for kern in cuda_rescore.KERNELS] == before
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(cuda_rescore.rescore_local_plain(*args).numpy(), want)
+    whole = cuda_rescore.base_loglik_local_cuda(
+        _t(d["x"]), _t(d["path"]), _t(d["t_len"]), _t(d["codes"]), _t(d["ids"]),
+        _t(d["lm"]), _t(d["ls"]), k, cfg, t_w=t_w, cnt=cnt).numpy()
+    np.testing.assert_array_equal(whole, want)
+
+    # what the case reaches: scored edge positions (kk < k), positions masked
+    # for a slot without a real k-mer, the reference base's own row 0
+    live = (got != 0).any(2)
+    assert live.sum() > 200 and (~live).sum() > 50
+    assert (np.take_along_axis(got, np.clip(d["codes"], 0, 3)[..., None], 2) == 0).all()
+    first = d["path"][:, 0]
+    edge = np.zeros_like(live)
+    for r in range(R):
+        edge[r, first[r] + 1:first[r] + k - 1] = True
+    assert (live & edge).any()
+    bad_ids = np.zeros_like(live)
+    for r, i in zip(*np.nonzero(d["ids"] < 0)):
+        bad_ids[r, i:i + k] = True
+    assert not (live & bad_ids & (d["codes"] < 4)).any()
+    if case != "world_clipped_base":
+        assert bad_ids[3].any() and not live[3, 100:104].any()
+
+
+@pytest.mark.parametrize("mutate", ["edge_masked", "logf"])
+def test_local_tile_model_without_tables_mutations_are_caught(mutate, world):
+    """Two wrong kernels, written into the model: an edge position masked as
+    the tables kernel masks it, and the emission constant computed per slot
+    instead of gathered from the plain version's vector. Each differs from
+    the plain composition on every batch of the test above."""
+    for case in TILE_CASES:
+        d = _tile_case(case, world)
+        cfg = AlignConfig(k=d["k"])
+        got, cnt = _kmer_model(d, cfg, mutate=mutate)
+        want = cuda_rescore.rescore_local_plain(
+            _t(d["x"]), _t(d["path"]), _t(d["t_len"]), cnt, _t(d["codes"]), _t(d["ids"]),
+            _t(d["lm"]), _t(d["ls"]), cfg, d["t_w"]).numpy()
+        assert not np.array_equal(got, want), case

@@ -171,7 +171,7 @@ def skip_world():
 def test_skip_fill_planes_match_pallas(skip_case):
     d = skip_case
     assert len(d["tdecs"]) == 2
-    mu_b, sg_b = (a.numpy() for a in cuda_dp.band_gather(
+    mu_b, sg_b = (a.numpy() for a in cuda_dp.band_gather_plain(
         d["t"]["mu"], d["t"]["sigma"], d["t"]["lo"], 128))
     n_bits = 0
     for plane in range(2):
@@ -311,7 +311,7 @@ def test_pair_fill_matches_pallas(pair_case):
     d = pair_case
     t = d["t"]
     tcfg = AlignConfig(band_width=128, dp_pair_step=True)
-    # the rows go in: the wrapper gathers the bands for the two-sample fill
+    # the rows go in: the two-sample fill gathers its band levels itself
     (dec,), v_fin, acc = cuda_dp.viterbi_fill(
         t["x"], t["t_len"], t["mu"], t["sigma"], t["lo"], t["delta"], t["n_ref"], tcfg)
     # word for word, but for broken ties (a pair compares paths through the

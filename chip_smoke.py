@@ -22,7 +22,15 @@ two-plane backtrack. Further paths run at a smaller depth:
 the joint refiner (``snp_joint_rescore``, with and without
 ``snp_joint_skip``), ``snp_rescore="fixed"`` (the closed-form rescore) and
 the local rescore without genome tables (K6 with the shear gather folded
-in, one launch). The last line is
+in, one launch). Last, the command line as users run it, through
+``cli.main([...], reads=...)`` on the card: ``snp`` on the main path's reads
+with the native C++ prep on ``min(8, cpu_count)`` threads and with the
+Python prep on one (the api's calls), ``align`` (the api's alignments), the
+adaptive band on reads of 300 and 1800 bases (the long bucket at 256 slots;
+the calls of the same run on the CPU), checkpoint and resume, and the native
+prep held against the Python prep on the card's host, with ms per read of
+each. The earlier phases keep ``prep="python"``, so their numbers compare
+with those of earlier runs. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
 0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
 cuts every size (for a quick look, not for numbers), ``--profile`` adds a
@@ -33,17 +41,22 @@ card's idle share).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import nadavca_tpu_torch as nt
-from nadavca_tpu_torch import api, call as callmod, joint, pipeline
+from nadavca_tpu_torch import api, call as callmod, cli, joint, pipeline, prep_native
 from nadavca_tpu_torch.genome import Contig, Genome
 from nadavca_tpu_torch.io import fast5 as fast5mod
 from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
@@ -188,10 +201,12 @@ def wall_ms(fn) -> float:
 
 # ------------------------------------------------------------------ the world
 def make_world(seed: int, genome_len: int, n_snps: int, n_reads: int,
-               read_len: int, skip_prob: float = 0.0):
+               read_len, skip_prob: float = 0.0):
     """Simulated reads of a sample genome, and a reference that differs from
     it at ``n_snps`` planted positions (the caller must find those). With
-    ``skip_prob`` a position emits no sample with that probability."""
+    ``skip_prob`` a position emits no sample with that probability.
+    ``read_len`` is a length or a tuple of lengths the reads cycle through."""
+    lengths = read_len if isinstance(read_len, tuple) else (read_len,)
     rng = np.random.default_rng(seed)
     model = nt.default_model()
     sample = random_genome(rng, length=genome_len)
@@ -204,7 +219,8 @@ def make_world(seed: int, genome_len: int, n_snps: int, n_reads: int,
         codes[p] = (orig + int(rng.integers(1, 4))) % 4
         truth[p] = "ACGT"[orig]                 # the sample's base = the alt to call
     reference = Genome([Contig(contig.name, codes)])
-    reads = [simulate_read(sample, contig.name, model, rng, read_len=read_len,
+    reads = [simulate_read(sample, contig.name, model, rng,
+                           read_len=lengths[i % len(lengths)],
                            read_id=f"sim{i:05d}", skip_prob=skip_prob)
              for i in range(n_reads)]
     return model, reference, reads, truth
@@ -1082,6 +1098,254 @@ def joint_phase(reference, sub, model, batch_reads) -> dict:
     return out
 
 
+# --------------------------------------------------- phase 6: the command line
+# prep threads of the CLI phase (the card's host has 8 cores)
+CLI_WORKERS = min(8, os.cpu_count() or 1)
+# the kernels one batch of the default configuration launches: the band
+# gather runs inside the fill, K4's gather and the glue inside the rescore,
+# so neither has a launch of its own
+LOCAL_KERNELS = ("band_gather_folded", "viterbi_fill", "backtrack", "path_counts",
+                 "rescore_local_tab", "shear_gather_folded")
+# the kernels one batch of `align` launches: the files hold segments only
+ALIGN_KERNELS = ("band_gather_folded", "viterbi_fill", "backtrack")
+
+
+def run_cli(argv, raws) -> tuple:
+    """``cli.main(argv, reads=raws)``: (seconds, the run's metrics line)."""
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv, reads=raws)
+    secs = time.perf_counter() - t0
+    assert rc == 0, (argv, err.getvalue()[-2000:])
+    line = [l for l in err.getvalue().splitlines() if l.startswith("[metrics] ")][-1]
+    return secs, json.loads(line[len("[metrics] "):])
+
+
+def vcf_rows(path) -> list:
+    """(contig, pos0, ref, alt, coverage, posterior) of each VCF record."""
+    rows = []
+    for line in open(path):
+        if line.startswith("#"):
+            continue
+        c = line.rstrip("\n").split("\t")
+        dp, pp = c[7].split(";")
+        rows.append((c[0], int(c[1]) - 1, c[3], c[4], int(dp[3:]), float(pp[3:])))
+    return rows
+
+
+def vcf_body(path) -> list:
+    return [l for l in open(path) if not l.startswith("##")]
+
+
+def batches_of(m) -> dict:
+    """Batches of the run by band width, from the CLI's counters."""
+    return {int(k.rsplit("_", 1)[1]): int(v) for k, v in m["counters"].items()
+            if k.startswith("batches_band_")}
+
+
+def recall_of(rows, truth) -> int:
+    called = {r[1]: r[3] for r in rows}
+    return sum(1 for p, b in truth.items() if called.get(p) == b)
+
+
+def same_calls(tag, got, want, pp_atol) -> None:
+    """The same calls and coverage; posteriors within ``pp_atol`` (the card
+    adds with atomics, so float sums may differ in their last bits)."""
+    assert [g[:5] for g in got] == [w[:5] for w in want], (tag, got, want)
+    assert all(abs(g[5] - w[5]) <= pp_atol for g, w in zip(got, want)), tag
+
+
+def segments_of_file(path, n_pos):
+    seg_start = np.full(n_pos, -1, np.int64)
+    seg_end = np.full(n_pos, -1, np.int64)
+    for line in open(path).read().splitlines()[1:]:
+        i, a, b = (int(v) for v in line.split("\t"))
+        seg_start[i], seg_end[i] = a, b
+    return types.SimpleNamespace(seg_start=seg_start, seg_end=seg_end)
+
+
+def prep_ms_per_read(reference, model, cfg, raws, mode, workers) -> float:
+    work = pipeline.make_preprocessor(reference, cfg, model, mode=mode)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(work, raws))
+    return (time.perf_counter() - t0) * 1e3 / len(raws)
+
+
+def cli_phase(seed, model, reference, raws, records, api_calls, truth,
+              batch_reads) -> dict:
+    """The command line in one process on the card, as users run it, every
+    run through ``cli.main([...], reads=...)`` with ``--backend cuda
+    --device cuda``: ``snp`` and ``align`` on the main path's reads (native
+    prep on CLI_WORKERS threads, then Python prep on one), the adaptive band
+    on reads of mixed length, checkpoint and resume, and the native prep
+    against the Python prep on the card's host."""
+    cfg = nt.AlignConfig()
+    W = CLI_WORKERS
+    t0 = time.perf_counter()
+    prep_native.get_lib()                    # g++ builds csrc/prep.cpp here
+    out = {"phase": "cli", "workers": W,
+           "prep_native_build_seconds": time.perf_counter() - t0}
+    api_rows = [(c.contig, c.position, c.ref_base, c.alt_base, c.coverage,
+                 c.probability) for c in api_calls]
+    api_tp = recall_of(api_rows, truth)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "reference.fasta")
+        reference.to_fasta(ref)
+        base = [ref, "(in memory)", "--backend", "cuda", "--device", "cuda",
+                "--batch-reads", str(batch_reads)]
+        snp = ["snp", *base, "--min-coverage", "2"]
+
+        # (1) snp: the main path's kernels, the api's calls
+        runs = {}
+        for name, prep, workers in (("snp_native", "native", W),
+                                    ("snp_python", "python", 1)):
+            vcf = os.path.join(tmp, f"{name}.vcf")
+            reset_launches()
+            secs, m = run_cli(snp + ["-o", vcf, "--prep", prep,
+                                     "--workers", str(workers)], raws)
+            launches = read_launches()
+            n_b = sum(batches_of(m).values())
+            expect_launches(f"cli {name}", launches, {k: n_b for k in LOCAL_KERNELS})
+            rows = vcf_rows(vcf)
+            same_calls(f"cli {name} against the api", rows, api_rows, 1e-5)
+            tp = recall_of(rows, truth)
+            assert tp >= api_tp, (name, tp, api_tp)
+            runs[name] = rows
+            out[name] = {"prep": prep, "workers": workers, "seconds": secs,
+                         "reads": len(raws),
+                         "reads_per_s": m["counters"]["reads_called"] / secs,
+                         "batches_by_band": batches_of(m), "launches": launches,
+                         "calls": len(rows), "true_positive": tp,
+                         "planted": len(truth), "api_true_positive": api_tp,
+                         "metrics": m}
+
+        # (2) align: each file is the alignment api.align_reads gives the read
+        # (with the same prep), or differs from it by broken ties between
+        # identical levels only
+        aln_dir = os.path.join(tmp, "aln")
+        reset_launches()
+        secs, m = run_cli(["align", *base, "-o", aln_dir, "--prep", "native",
+                           "--workers", str(W)], raws)
+        launches = read_launches()
+        expect_launches("cli align", launches,
+                        {k: sum(batches_of(m).values()) for k in ALIGN_KERNELS})
+        api_alns = api.align_reads(reference, raws, config=cfg, model=model,
+                                   backend="cuda", batch_reads=batch_reads,
+                                   prep="native", device="cuda")
+        assert sorted(os.listdir(aln_dir)) == sorted(f"{a.read_id}.txt" for a in api_alns)
+        levels = {r.read_id: (r.mu, r.sigma) for r in records}
+        want = os.path.join(tmp, "want.txt")
+        n_tied = n_tie_samples = 0
+        for a in api_alns:
+            got = os.path.join(aln_dir, f"{a.read_id}.txt")
+            callmod.write_alignment(want, a.read_id, a.contig, a.strand, a.ref_start,
+                                    a.ref_end, a.seg_start, a.seg_end)
+            if open(got).read() == open(want).read():
+                continue
+            g = segments_of_file(got, len(a.seg_start))
+            n = int(max(g.seg_end.max(), a.seg_end.max()))
+            pa = torch.from_numpy(path_of(g, n))[None]
+            pb = torch.from_numpy(path_of(a, n))[None]
+            mu, sigma = (torch.from_numpy(v)[None] for v in levels[a.read_id])
+            n_tie_samples += tie_only_differences(
+                f"cli align {a.read_id}", pa, pb, (pa >= 0) & (pb >= 0), mu, sigma,
+                max_share=0.05)
+            n_tied += 1
+        assert n_tied <= 0.05 * len(api_alns), n_tied
+        out["align"] = {"seconds": secs, "reads_per_s_e2e": m["gauges"]["reads_per_s_e2e"],
+                        "files": len(api_alns), "launches": launches,
+                        "files_equal_to_api": len(api_alns) - n_tied,
+                        "files_differing_by_ties_only": n_tied,
+                        "tie_samples": n_tie_samples}
+
+        # (3) the adaptive band: reads of 300 and 1800 bases (~2.9k and ~18k
+        # samples); the long bucket runs at band_width_long on the card, with
+        # the calls of the same run on the CPU (the plain versions)
+        _, ref_m, reads_m, truth_m = make_world(seed + 6, 6000, 2, 32, (300, 1800))
+        raws_m = [api.raw_read_from_simulated(r) for r in reads_m]
+        assert max(len(r.signal) for r in reads_m) > cfg.adaptive_band_threshold
+        ref_mp = os.path.join(tmp, "mixed.fasta")
+        ref_m.to_fasta(ref_mp)
+        band = {}
+        for where in ("cuda", "cpu"):
+            vcf = os.path.join(tmp, f"mixed_{where}.vcf")
+            reset_launches()
+            secs, m = run_cli(["snp", ref_mp, "(in memory)", "--backend", "cuda",
+                               "--device", where, "--min-coverage", "2",
+                               "--workers", str(W), "-o", vcf], raws_m)
+            band[where] = {"seconds": secs, "batches_by_band": batches_of(m),
+                           "launches": read_launches(), "rows": vcf_rows(vcf)}
+        assert band["cuda"]["batches_by_band"].get(cfg.band_width_long, 0) >= 1, band
+        assert band["cuda"]["batches_by_band"] == band["cpu"]["batches_by_band"]
+        expect_launches("cli adaptive band", band["cuda"]["launches"],
+                        {k: sum(band["cuda"]["batches_by_band"].values())
+                         for k in LOCAL_KERNELS})
+        assert not any(band["cpu"]["launches"].values()), "a CPU run launched a kernel"
+        same_calls("adaptive band, card against CPU", band["cuda"]["rows"],
+                   band["cpu"]["rows"], 1e-5)
+        out["adaptive_band"] = {
+            "reads": len(raws_m), "read_lengths": [300, 1800],
+            "samples_max": max(len(r.signal) for r in reads_m),
+            "batches_by_band": band["cuda"]["batches_by_band"],
+            "launches": band["cuda"]["launches"], "calls": len(band["cuda"]["rows"]),
+            "true_positive": recall_of(band["cuda"]["rows"], truth_m),
+            "planted": len(truth_m), "seconds_card": band["cuda"]["seconds"],
+            "seconds_cpu": band["cpu"]["seconds"]}
+
+        # (4) checkpoint and resume: a run that saves after every batch, then
+        # a resumed run that finds every read merged (its VCF from the saved
+        # accumulators, byte for byte); and a run cut after the first half of
+        # the reads, resumed over all of them (the api's calls)
+        ck = os.path.join(tmp, "state.npz")
+        full, again = os.path.join(tmp, "ck_full.vcf"), os.path.join(tmp, "ck_again.vcf")
+        run_cli(snp + ["-o", full, "--checkpoint", ck, "--checkpoint-every", "1",
+                       "--workers", str(W)], raws)
+        _, m = run_cli(snp + ["-o", again, "--checkpoint", ck, "--workers", str(W)], raws)
+        assert vcf_body(again) == vcf_body(full)
+        assert m["counters"]["reads_ingested"] == 0
+        ck2 = os.path.join(tmp, "cut.npz")
+        cut, resumed = os.path.join(tmp, "cut.vcf"), os.path.join(tmp, "resumed.vcf")
+        half = len(raws) // 2
+        _, m_cut = run_cli(snp + ["-o", cut, "--checkpoint", ck2, "--checkpoint-every",
+                                  "1", "--workers", str(W)], raws[:half])
+        _, m_res = run_cli(snp + ["-o", resumed, "--checkpoint", ck2,
+                                  "--workers", str(W)], raws)
+        assert m_res["counters"]["reads_resumed_skip"] == m_cut["counters"]["reads_called"]
+        same_calls("resumed after a cut", vcf_rows(resumed), api_rows, 1e-5)
+        out["checkpoint"] = {"resumed_equals_uninterrupted_bytes": True,
+                             "cut_after_reads": half,
+                             "resumed_skipped": m_res["counters"]["reads_resumed_skip"],
+                             "resumed_ingested": m_res["counters"]["reads_ingested"],
+                             "calls": len(vcf_rows(resumed))}
+
+    # (5) the native prep against the Python prep on this host: anchors,
+    # paths and windows exact, the calibrated signal to float tolerance
+    # (tests/test_prep_native.py); then ms per read of each, 1 and W threads
+    work = pipeline.make_preprocessor(reference, cfg, model, mode="native")
+    by_id = {r.read_id: r for r in records}
+    n_ok = 0
+    for raw in raws:
+        nt_rec, py = work(raw), by_id.get(raw.read_id)
+        assert (nt_rec is None) == (py is None), raw.read_id
+        if py is None:
+            continue
+        n_ok += 1
+        assert (nt_rec.anchor.contig, nt_rec.anchor.strand, nt_rec.anchor.ref_start,
+                nt_rec.anchor.ref_end, nt_rec.anchor.score) == (
+            py.anchor.contig, py.anchor.strand, py.anchor.ref_start,
+            py.anchor.ref_end, py.anchor.score), raw.read_id
+        for f in ("window_codes", "anchor_path", "mu", "sigma"):
+            assert np.array_equal(getattr(nt_rec, f), getattr(py, f)), (raw.read_id, f)
+        np.testing.assert_allclose(nt_rec.signal, py.signal, rtol=1e-5, atol=2e-5)
+    out["prep_parity"] = {"reads": len(raws), "anchored": n_ok}
+    out["prep_ms_per_read"] = {
+        f"{mode}_{w}_threads": prep_ms_per_read(reference, model, cfg, raws, mode, w)
+        for mode in ("native", "python") for w in (1, W)}
+    return out
+
+
 DEVICE_STAGES = ("h2d", "viterbi_fill", "final_slot", "backtrack", "rescore_total",
                  "scatter")
 
@@ -1212,10 +1476,6 @@ def main() -> int:
     del a_s, a_sw, batch_s, batch_sw, batch_w
 
     # ---- phase 4: the main path — the default configuration through the api
-    # the band gather runs inside the fill, K4's gather and the glue inside
-    # the rescore: neither has a launch of its own
-    local_kernels = ("band_gather_folded", "viterbi_fill", "backtrack", "path_counts",
-                     "rescore_local_tab", "shear_gather_folded")
     with tempfile.TemporaryDirectory() as tmp:
         fast5_dir = None
         if fast5mod.HAVE_H5PY:
@@ -1228,7 +1488,7 @@ def main() -> int:
         calls, alns, snp_s, aln_s = run_api(reference, raws, fast5_dir, cfg, model,
                                             "cuda", batch_reads)
         launches = read_launches()
-        expect_launches("local", launches, {k: 2 * n_batches for k in local_kernels})
+        expect_launches("local", launches, {k: 2 * n_batches for k in LOCAL_KERNELS})
         assert len(alns) >= 0.9 * len(reads), (len(alns), len(reads))
 
     # the result is right: (a) the same entry points on the CPU, where every
@@ -1282,7 +1542,7 @@ def main() -> int:
     reset_launches()
     card_384 = run_api(reference, sub_384, None, cfg_384, model, "cuda", 64)[:2]
     launches_384 = read_launches()
-    expect_launches("band 384", launches_384, {k_: 2 for k_ in local_kernels})
+    expect_launches("band 384", launches_384, {k_: 2 for k_ in LOCAL_KERNELS})
     levels = {r.read_id: (r.mu, r.sigma) for r in records}
     n_tied_384 = assert_agree(
         "band 384", card_384, run_api(reference, sub_384, None, cfg_384, model, "cpu",
@@ -1414,6 +1674,9 @@ def main() -> int:
                                    "rescore_total_ms": no_tab_stage,
                                    "rescore_kernel_ms": no_tab_kernel,
                                    "peak_device_mb_one_batch": no_tab_peak_mb}})
+    # ---- phase 6: the command line, as users run it
+    emit(cli_phase(args.seed, model, reference, raws, records, calls, truth,
+                   batch_reads))
     if args.profile:
         emit({"phase": "profile", **profile_main_path(
             reference, raws, cfg, model, batch_reads, snp_s)})

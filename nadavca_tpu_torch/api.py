@@ -102,6 +102,10 @@ def _preprocess(
     workers: int = 1,
     prep: str = "auto",
 ) -> List[ReadRecord]:
+    """Host prep of every read on ``workers`` threads, by the engine
+    ``pipeline.make_preprocessor`` picks for ``prep``: "auto" is the native
+    C++ engine where g++ builds it (else Python), "native" raises where it
+    cannot be built, "python" is the Python path."""
     work = make_preprocessor(genome, cfg, model=model, mode=prep)
     raws = list(raws)
     if workers > 1:
@@ -213,7 +217,9 @@ def align_signal(
     ``fast5`` a file, directory, or list of either, ``config`` an
     :class:`AlignConfig` (defaults otherwise). Returns one
     :class:`ReadAlignment` per successfully anchored read, in input order;
-    unanchorable or basecall-less reads are silently dropped.
+    unanchorable or basecall-less reads are silently dropped. ``prep``
+    ("auto", "native" or "python") picks the host prep engine and
+    ``workers`` its threads (see :func:`_preprocess`).
     """
     return align_reads(
         _as_genome(reference), _iter_raw(fast5), config=config, model=model,
@@ -315,7 +321,8 @@ def call_snps(
 
     Per-read base log-likelihoods from the banded DP are scatter-added into
     per-contig locus accumulators, converted to posteriors, and thresholded
-    into :class:`~nadavca_tpu_torch.call.SnpCall` records.
+    into :class:`~nadavca_tpu_torch.call.SnpCall` records. ``prep`` and
+    ``workers`` as in :func:`align_signal`.
     """
     return call_snps_reads(
         _as_genome(reference), _iter_raw(fast5), config=config, model=model,

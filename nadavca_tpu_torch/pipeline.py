@@ -12,7 +12,9 @@ eager PyTorch. ``cfg.use_skip`` and ``cfg.dp_pair_step`` select the fill and
 backtrack variants inside ``ops/cuda_dp``. There is no jit layer:
 ``align_batch`` calls ``device_compute`` directly.
 
-Not ported yet (raises ``NotImplementedError``): the native C++ prep.
+Host prep runs either in Python (``preprocess_read``) or in the native C++
+engine (``prep_native``, the JAX package's ``csrc/prep.cpp``);
+``make_preprocessor`` picks one.
 """
 
 from __future__ import annotations
@@ -132,18 +134,33 @@ def make_preprocessor(
     model: Optional[KmerModel] = None,
     mode: str = "auto",
 ):
-    """Callable(raw_read) -> Optional[ReadRecord].
+    """Callable(raw_read) -> Optional[ReadRecord], native C++ or Python.
 
-    mode: "python", or "auto", which means python here. "native" (the C++
-    prep engine of the JAX package) is not ported yet and raises.
+    mode: "auto" (native when g++ builds it, else Python), "native" (raises
+    if it cannot be built), "python". The native engine (``csrc/prep.cpp``)
+    releases the GIL while it runs, so prep threads overlap.
     """
     from .io import fast5 as fast5mod
 
     if mode not in ("auto", "native", "python"):
         raise ValueError(f"unknown prep mode {mode!r}")
-    if mode == "native":
-        raise NotImplementedError(
-            "the native C++ prep engine is not ported yet; use prep='python'")
+    if mode != "python":
+        from . import prep_native
+
+        try:
+            native = prep_native.NativePrep(genome)
+        except (OSError, RuntimeError):
+            if mode == "native":
+                raise
+        else:
+            def work_native(raw):
+                if raw.basecall is None or raw.move_index is None:
+                    return None
+                return native.prep_read(
+                    raw.signal_pa, raw.basecall, raw.move_index, cfg,
+                    model=model, read_id=raw.read_id)
+
+            return work_native
 
     index = SeedIndex(genome)
 

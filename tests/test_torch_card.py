@@ -414,3 +414,40 @@ def test_align_reads_with_pair_step(card):
                 & (np.abs(pa[t] - pb[t]) <= 2)).all(), a.read_id
         n_tied += 1
     assert n_tied <= 2, n_tied
+
+
+def test_cli_snp_with_native_prep_gives_the_api_calls(card, tmp_path):
+    """``cli.main(["snp", ...], reads=...)`` on the card, with the native prep
+    on two threads, streams, buckets and accumulates differently from
+    ``api.call_snps_reads`` and gives its calls and coverage (the card adds
+    with atomics, so posteriors may differ in their last bits)."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import api, cli
+    from nadavca_tpu_torch.genome import Contig, Genome
+    from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
+
+    rng = np.random.default_rng(9)
+    model = nt.default_model()
+    sample = random_genome(rng, length=3000)
+    codes = sample.contigs[0].codes.copy()
+    for p in (600, 1400, 2200):
+        codes[p] = (codes[p] + 1) % 4
+    reference = Genome([Contig(sample.contigs[0].name, codes)])
+    reads = [simulate_read(sample, sample.contigs[0].name, model, rng, read_len=600,
+                           read_id=f"c{i:03d}") for i in range(64)]
+    raws = [api.raw_read_from_simulated(r) for r in reads]
+    ref = str(tmp_path / "reference.fasta")
+    reference.to_fasta(ref)
+    out = str(tmp_path / "calls.vcf")
+    before = _launches()
+    assert cli.main(["snp", ref, "(in memory)", "-o", out, "--backend", "cuda",
+                     "--device", "cuda", "--prep", "native", "--workers", "2",
+                     "--batch-reads", "32", "--min-coverage", "2"], reads=raws) == 0
+    assert _launches()["viterbi_fill"] > before["viterbi_fill"]
+    calls = api.call_snps_reads(reference, raws, backend="cuda", batch_reads=32,
+                                min_coverage=2, prep="native", device="cuda")
+    got = [l.split("\t") for l in open(out) if not l.startswith("#")]
+    assert [(c[0], int(c[1]) - 1, c[3], c[4], c[7].split(";")[0]) for c in got] == [
+        (c.contig, c.position, c.ref_base, c.alt_base, f"DP={c.coverage}")
+        for c in calls]
+    assert len(calls) >= 3

@@ -243,12 +243,16 @@ def test_default_config_runs_with_no_config_at_all():
 
 
 @pytest.mark.parametrize("what", ["native"])
-def test_not_ported_yet_raises(what):
-    cfg = nadavca_tpu_torch.AlignConfig(snp_rescore="fixed")
-    with pytest.raises(NotImplementedError):
-        tapi.call_snps(REF, DATA, cfg, device="cpu", prep="native")
-    with pytest.raises(NotImplementedError):
-        tapi.align_signal(REF, DATA, cfg, device="cpu", prep="native")
+def test_not_ported_yet_raises(what, tmp_path):
+    """Named for what it held before the native prep was ported (that
+    ``prep="native"`` raised); the port now has it, and it reproduces the
+    golden VCF through ``api.call_snps`` under ``scan``."""
+    calls = tapi.call_snps(REF, DATA, backend="scan", batch_reads=16,
+                           min_coverage=3, prep=what, device="cpu")
+    out = str(tmp_path / "calls.vcf")
+    tcall.write_vcf(out, calls)
+    body = _vcf_body(os.path.join(GOLD, "calls.vcf"))
+    assert len(body) >= 1 and _vcf_body(out) == body
 
 
 def test_unknown_backend_and_prep_raise():

@@ -29,7 +29,12 @@ Python prep on one (the api's calls), ``align`` (the api's alignments), the
 adaptive band on reads of 300 and 1800 bases (the long bucket at 256 slots;
 the calls of the same run on the CPU), checkpoint and resume, and the native
 prep held against the Python prep on the card's host, with ms per read of
-each. The earlier phases keep ``prep="python"``, so their numbers compare
+each. Then several devices and processes on the one card (``multi_device``):
+``parallel.sharded`` on the mesh ``[cuda:0, cuda:0]`` in its three layouts
+against one device, ``cli snp`` in two gloo ranks (spawned) against one
+process, with a checkpoint and a resume, and the JAX package's config 4 (a
+4.6 Mb genome, genome-sharded with deferred merges) in two ranks against one
+process. The earlier phases keep ``prep="python"``, so their numbers compare
 with those of earlier runs. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
 0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
@@ -44,11 +49,14 @@ import argparse
 import contextlib
 import io
 import json
+import multiprocessing
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import types
 from concurrent.futures import ThreadPoolExecutor
 
@@ -62,7 +70,9 @@ from nadavca_tpu_torch.io import fast5 as fast5mod
 from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
 from nadavca_tpu_torch.ops import banded_dp, cuda_dp, cuda_rescore
 from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
+from nadavca_tpu_torch.parallel import sharded
 from nadavca_tpu_torch.utils import kernel_build
+from nadavca_tpu_torch.utils.checkpoint import load_checkpoint
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores (the kernels here use no tensor core)
@@ -1346,6 +1356,237 @@ def cli_phase(seed, model, reference, raws, records, api_calls, truth,
     return out
 
 
+# ------------------------------------------------ phase 7: several devices
+# ranks of the process-group parts, all on the one card (gloo: NCCL takes
+# one rank a card)
+MD_RANKS = 2
+# the accumulator's tolerance against one device (tests/test_sharded.py);
+# cov and votes are integer sums and must be exact
+MD_ACC_TOL = dict(rtol=1e-4, atol=1e-2)
+# config 4 of the JAX package's BASELINE.json: a whole bacterial genome
+# (--small: a cut genome, its layout set by flag)
+CONFIG4_GENOME, CONFIG4_SMALL = 4_600_000, 60_000
+# the longest a spawned rank may take
+RANK_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def cli_rank(argv, raws, q) -> None:
+    """One spawned rank: ``cli.main(argv, reads=raws)``; puts (process id,
+    return code, stderr, launches) on ``q``, or the traceback."""
+    err = io.StringIO()
+    rank = int(argv[argv.index("--process-id") + 1])
+    try:
+        reset_launches()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv, reads=raws)
+        q.put((rank, rc, err.getvalue(), read_launches()))
+    except BaseException:
+        q.put((rank, 1, err.getvalue() + traceback.format_exc(), {}))
+        raise
+
+
+def run_ranks(argv, raws, n=MD_RANKS):
+    """``cli snp`` in n spawned ranks of one gloo group on the card, every
+    rank given all the reads (each keeps its share). Returns (seconds, per
+    rank: its metrics line and launches). Every rank is stopped before it
+    returns; a rank that failed or did not answer raises."""
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=cli_rank, args=(
+        argv + ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+                "--process-id", str(i)], raws, q)) for i in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(n):
+            rank, rc, err, launches = q.get(timeout=RANK_TIMEOUT_S)
+            assert rc == 0, (rank, err[-3000:])
+            line = [l for l in err.splitlines() if l.startswith("[metrics] ")][-1]
+            out[rank] = {"metrics": json.loads(line[len("[metrics] "):]),
+                         "launches": launches}
+        secs = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    return secs, [out[i] for i in range(n)]
+
+
+def rank_summary(ranks) -> list:
+    return [{"reads": r["metrics"]["counters"]["reads_called"],
+             "tables_build_s": r["metrics"]["gauges"]["subst_build_s"],
+             "merge_s": r["metrics"]["gauges"]["merge_s"],
+             "reads_per_s": r["metrics"]["gauges"]["reads_per_s"],
+             "peak_device_mb": r["metrics"]["gauges"]["peak_device_mb"],
+             "viterbi_fill_launches": r["launches"].get("viterbi_fill", 0)}
+            for r in ranks]
+
+
+def sharded_part(reference, model, records, cfg, batch_reads, tables) -> dict:
+    """(a) ``parallel.sharded`` on the mesh [cuda:0, cuda:0]: the main
+    world's batches split in two blocks of rows, in each layout, against one
+    device; merging the deferred partials twice gives the same result."""
+    G = len(reference.contigs[0])
+    order = sorted(records, key=lambda r: len(r.signal))
+    batches = [pipeline.assemble_batch(order[i:i + batch_reads], model, cfg,
+                                       pad_reads_to=batch_reads)
+               for i in range(0, len(order), batch_reads)]
+    codes = reference.contigs[0].codes
+
+    def run(mesh, gs, md):
+        Gp = -(-G // (mesh.size * 128)) * mesh.size * 128 if gs else G
+        reps = sharded.replicate_tables(mesh, tables)
+        accs = sharded.make_accumulators_sharded(mesh, Gp, gs, md)
+        step = sharded.make_sharded_step(mesh, cfg, Gp, gs, with_path=False,
+                                         merge_deferred=md)
+        reset_launches()
+        t0 = time.perf_counter()
+        for b in batches:
+            _, *accs = step(sharded.shard_batch(mesh, b, model, cfg, "cuda", reps), *accs)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        same_merge = None
+        if md:
+            merge = sharded.make_merge_fn(mesh, Gp, gs)
+            m1, m2 = merge(*accs), merge(*accs)
+            same_merge = all(torch.equal(x, y) for a, b in zip(m1, m2)
+                             for x, y in zip(a, b))
+            assert same_merge, "merging the partials twice differs"
+            accs = m1
+        acc, cov, votes = (sharded.fetch(mesh, a, gs)[:G] for a in accs)
+        calls = callmod.call_snps(acc, cov, codes, reference.contigs[0].name, cfg,
+                                  min_coverage=2, votes=votes)
+        return dict(acc=acc, cov=cov, votes=votes, calls=calls, seconds=secs,
+                    launches=launches, merge_twice_equal=same_merge)
+
+    one = run(sharded.make_mesh(1, "cuda"), False, False)
+    mesh2 = sharded.Mesh((torch.device("cuda", 0),) * 2)
+    out = {"mesh": ["cuda:0", "cuda:0"], "batches": len(batches),
+           "rows_per_block": batch_reads // 2, "one_device_seconds": one["seconds"],
+           "calls": len(one["calls"])}
+    key = lambda c: (c.position, c.ref_base, c.alt_base, c.coverage)
+    for name, gs, md in (("replicated", False, False), ("genome_sharded", True, False),
+                         ("deferred", False, True)):
+        got = run(mesh2, gs, md)
+        n_fill = got["launches"]["viterbi_fill"]
+        assert n_fill == 2 * len(batches), (name, got["launches"])
+        assert np.array_equal(got["cov"], one["cov"]), name
+        assert np.array_equal(got["votes"], one["votes"]), name
+        np.testing.assert_allclose(got["acc"], one["acc"], **MD_ACC_TOL)
+        assert [key(c) for c in got["calls"]] == [key(c) for c in one["calls"]], name
+        assert all(abs(a.probability - b.probability) <= 1e-5
+                   for a, b in zip(got["calls"], one["calls"])), name
+        out[name] = {"seconds": got["seconds"], "launches": got["launches"],
+                     "cov_equal": int((got["cov"] == one["cov"]).sum()),
+                     "votes_equal": int((got["votes"] == one["votes"]).all(1).sum()),
+                     "positions": G,
+                     "acc_max_abs_diff": float(np.abs(got["acc"] - one["acc"]).max()),
+                     "calls_equal": len(got["calls"]),
+                     "merge_twice_equal": got["merge_twice_equal"]}
+    return out
+
+
+def multi_device_phase(seed, model, reference, raws, records, batch_reads,
+                       smi, small=False) -> dict:
+    """Several devices on the one card: (a) the sharded step in one process,
+    (b) the CLI in two processes against one process, with a checkpoint and
+    a resume, (c) config 4's 4.6 Mb genome in two processes, genome-sharded
+    with deferred merges (both chosen by ``auto``), against one process.
+    Two ranks on one card check the protocol; they are no scaling number.
+    ``small`` cuts (c)'s genome and sets its layout by flag."""
+    cfg = nt.AlignConfig()
+    W = max(1, CLI_WORKERS // MD_RANKS)
+    out = {"phase": "multi_device", "nvidia_smi": smi, "ranks": MD_RANKS,
+           "backend": "gloo"}
+    t0 = time.perf_counter()
+    tables = build_subst_tables(reference, model, device="cuda")
+    out["a_sharded"] = sharded_part(reference, model, records, cfg, batch_reads, tables)
+    del tables
+    out["a_sharded"]["seconds"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the main world through the CLI: one process, then two ranks
+        # that save after every round, then two that resume
+        t0 = time.perf_counter()
+        ref = os.path.join(tmp, "reference.fasta")
+        reference.to_fasta(ref)
+        base = ["snp", ref, "(in memory)", "--backend", "cuda", "--device", "cuda",
+                "--batch-reads", str(batch_reads), "--min-coverage", "2",
+                "--workers", str(W)]
+        one_vcf, mh_vcf, again_vcf = (os.path.join(tmp, f) for f in
+                                      ("one.vcf", "mh.vcf", "again.vcf"))
+        one_s, _ = run_cli(base + ["-o", one_vcf], raws)
+        ck = os.path.join(tmp, "mh.npz")
+        mh_s, ranks = run_ranks(base + ["-o", mh_vcf, "--checkpoint", ck,
+                                        "--checkpoint-every", "1"], raws)
+        assert os.path.exists(ck) and os.path.exists(ck + ".p1")
+        res_s, res_ranks = run_ranks(base + ["-o", again_vcf, "--checkpoint", ck], raws)
+        one_body, mh_body = vcf_body(one_vcf), vcf_body(mh_vcf)
+        assert mh_body == one_body, "two ranks: another VCF than one process"
+        assert vcf_body(again_vcf) == mh_body, "resumed: another VCF"
+        assert sum(r["metrics"]["counters"]["reads_resumed_skip"]
+                   for r in res_ranks) == sum(r["metrics"]["counters"]["reads_called"]
+                                              for r in ranks)
+        assert all(r["launches"].get("viterbi_fill", 0) >= 1 for r in ranks)
+        out["b_cli_two_processes"] = {
+            "reads": len(raws), "one_process_seconds": one_s,
+            "two_ranks_seconds": mh_s, "resume_seconds": res_s,
+            "vcf_records": len(one_body) - 1, "vcf_bytes_equal": True,
+            "resumed_vcf_bytes_equal": True, "ranks": rank_summary(ranks),
+            "seconds": time.perf_counter() - t0}
+
+        # (c) config 4: 512 reads of 1000 bases over a 4.6 Mb genome;
+        # genome-sharded (auto: G >= 2**22) with deferred merges (auto)
+        t0 = time.perf_counter()
+        G4 = CONFIG4_SMALL if small else CONFIG4_GENOME
+        _, ref4, reads4, _ = make_world(seed + 7, G4, 0, len(raws), 1000)
+        raws4 = [api.raw_read_from_simulated(r) for r in reads4]
+        ref4p = os.path.join(tmp, "config4.fasta")
+        ref4.to_fasta(ref4p)
+        world_s = time.perf_counter() - t0
+        base4 = ["snp", ref4p, "(in memory)", "--backend", "cuda", "--device", "cuda",
+                 "--batch-reads", str(batch_reads), "--workers", str(W)]
+        layout4 = ["--genome-sharded", "on", "--merge", "deferred"] if small else []
+        ck1, ck2 = os.path.join(tmp, "c4_one.npz"), os.path.join(tmp, "c4_mh.npz")
+        torch.cuda.reset_peak_memory_stats()
+        one4_s, one4_m = run_cli(base4 + ["-o", os.path.join(tmp, "c4_one.vcf"),
+                                          "--checkpoint", ck1], raws4)
+        mh4_s, ranks4 = run_ranks(base4 + layout4 + [
+            "-o", os.path.join(tmp, "c4_mh.vcf"), "--checkpoint", ck2], raws4)
+        (a1, c1, v1), = load_checkpoint(ck1)[0].values()
+        (a2, c2, v2), = load_checkpoint(ck2)[0].values()
+        assert np.array_equal(c2, c1) and np.array_equal(v2, v1), "config 4: cov/votes"
+        np.testing.assert_allclose(a2, a1, **MD_ACC_TOL)
+        Gp4 = -(-G4 // (MD_RANKS * 128)) * MD_RANKS * 128
+        out["c_config4"] = {
+            "genome": G4, "reads": len(raws4), "read_len": 1000,
+            "world_seconds": world_s, "covered_positions": int((c1 > 0).sum()),
+            "genome_sharded": True, "merge": "deferred",
+            "partial_mb_per_rank": Gp4 * 36 / 1e6,
+            "cov_equal": int((c2 == c1).sum()), "votes_equal": int((v2 == v1).all(1).sum()),
+            "acc_max_abs_diff": float(np.abs(a2 - a1).max()),
+            "one_process": {"seconds": one4_s,
+                            "tables_build_s": one4_m["gauges"]["subst_build_s"],
+                            "reads_per_s": one4_m["gauges"]["reads_per_s"],
+                            "peak_device_mb": one4_m["gauges"]["peak_device_mb"]},
+            "two_ranks_seconds": mh4_s, "ranks": rank_summary(ranks4),
+            "seconds": time.perf_counter() - t0}
+    return out
+
+
 DEVICE_STAGES = ("h2d", "viterbi_fill", "final_slot", "backtrack", "rescore_total",
                  "scatter")
 
@@ -1677,6 +1918,9 @@ def main() -> int:
     # ---- phase 6: the command line, as users run it
     emit(cli_phase(args.seed, model, reference, raws, records, calls, truth,
                    batch_reads))
+    # ---- phase 7: several devices and processes, on the one card
+    emit(multi_device_phase(args.seed, model, reference, raws, records, batch_reads,
+                            smi, small))
     if args.profile:
         emit({"phase": "profile", **profile_main_path(
             reference, raws, cfg, model, batch_reads, snp_s)})

@@ -106,6 +106,28 @@ def accumulate_batch(
     return acc_pad[:G], cov_pad[:G], votes_pad[:G]
 
 
+def accumulate_batch_(
+    acc: torch.Tensor,          # (G, 4) float32, added to in place
+    cov: torch.Tensor,          # (G,) int32, added to in place
+    votes: torch.Tensor,        # (G, 4) int32, added to in place
+    base_ll: torch.Tensor,
+    window_start: torch.Tensor,
+    window_len: torch.Tensor,
+    strand: torch.Tensor,
+    cfg: AlignConfig = AlignConfig(),
+) -> None:
+    """:func:`accumulate_batch` into the given accumulators, in place, with no
+    G-sized temporary. The overflow row's entries are zeros (``scatter_values``
+    masks them), so they are added to row 0, which leaves it as it was."""
+    G = acc.shape[0]
+    flat_pos, ll, n_valid, onehot = scatter_values(
+        base_ll, window_start, window_len, strand, G, cfg)
+    flat_pos = torch.where(flat_pos < G, flat_pos, torch.zeros_like(flat_pos))
+    acc.index_add_(0, flat_pos, ll.to(acc.dtype))
+    cov.index_add_(0, flat_pos, n_valid.to(cov.dtype))
+    votes.index_add_(0, flat_pos, onehot.to(votes.dtype))
+
+
 def make_accumulators(genome_len: int, with_votes: bool = False, device="cuda"):
     """Fresh (G, 4) log-likelihood and (G,) coverage accumulators."""
     acc = torch.zeros((genome_len, 4), dtype=torch.float32, device=device)

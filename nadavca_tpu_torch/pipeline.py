@@ -259,6 +259,23 @@ def assemble_batch(
     )
 
 
+def batch_rows(batch: Batch, start: int, stop: int) -> Batch:
+    """Rows ``[start, stop)`` of an assembled batch, as a batch of its own.
+    The true reads are the batch's first ``n_reads`` rows, so the padding
+    rows of the slice stay padding (a slice past them is all padding)."""
+    rows = slice(start, stop)
+    n = max(0, min(stop, batch.n_reads) - start)
+    b = batch.bands
+    return dataclasses.replace(
+        batch, x=batch.x[rows], t_len=batch.t_len[rows], mu=batch.mu[rows],
+        sigma=batch.sigma[rows], n_ref=batch.n_ref[rows],
+        bands=dataclasses.replace(b, lo=b.lo[rows], delta=b.delta[rows]),
+        codes=batch.codes[rows], ids=batch.ids[rows],
+        window_start=batch.window_start[rows], window_len=batch.window_len[rows],
+        strand=batch.strand[rows], read_ids=batch.read_ids[start:start + n],
+        contigs=batch.contigs[rows], n_reads=n)
+
+
 def path_to_segments(path: np.ndarray, t_len: int, n_ref: int):
     """Per-reference-position signal sample ranges from a Viterbi path.
 

@@ -451,3 +451,51 @@ def test_cli_snp_with_native_prep_gives_the_api_calls(card, tmp_path):
         (c.contig, c.position, c.ref_base, c.alt_base, f"DP={c.coverage}")
         for c in calls]
     assert len(calls) >= 3
+
+
+def test_sharded_step_on_one_card_twice_equals_one_device(card):
+    """``parallel.sharded`` on the mesh ``[cuda:0, cuda:0]``: 40 reads padded
+    to 128 rows, so the second shard is all padding (rows of the minimal
+    live length); every layout and merge cadence gives the one-device
+    accumulators (``cov``, ``votes`` exact, ``acc`` as the JAX tests hold
+    it), with the kernels launched once a shard."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import api, pipeline
+    from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
+    from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
+    from nadavca_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(10)
+    model = nt.default_model()
+    cfg = AlignConfig()
+    genome = random_genome(rng, length=4096)
+    reads = [simulate_read(genome, genome.contigs[0].name, model, rng, read_len=500,
+                           read_id=f"s{i:03d}") for i in range(40)]
+    records = api._preprocess([api.raw_read_from_simulated(r) for r in reads], genome,
+                              model, cfg, prep="python")
+    batch = pipeline.assemble_batch(records, model, cfg, pad_reads_to=128)
+    G = len(genome.contigs[0])
+    tables = build_subst_tables(genome, model, device=card)
+
+    def run(mesh, gs, md):
+        blocks = sharded.shard_batch(mesh, batch, model, cfg, "cuda",
+                                     sharded.replicate_tables(mesh, tables))
+        accs = sharded.make_accumulators_sharded(mesh, G, gs, md)
+        before = _launches()
+        _, *accs = sharded.make_sharded_step(mesh, cfg, G, gs, with_path=False,
+                                             merge_deferred=md)(blocks, *accs)
+        torch.cuda.synchronize()
+        n = _launches()["viterbi_fill"] - before["viterbi_fill"]
+        assert n == len(mesh.devices), n
+        if md:
+            accs = sharded.make_merge_fn(mesh, G, gs)(*accs)
+        return [sharded.fetch(mesh, a, gs) for a in accs], blocks
+
+    one, _ = run(sharded.make_mesh(1, card), False, False)
+    two = sharded.Mesh((torch.device("cuda", 0),) * 2)
+    for gs, md in ((False, False), (True, False), (False, True), (True, True)):
+        got, blocks = run(two, gs, md)
+        assert [b.batch.n_reads for b in blocks] == [len(records), 0]
+        np.testing.assert_array_equal(got[1], one[1])
+        np.testing.assert_array_equal(got[2], one[2])
+        np.testing.assert_allclose(got[0], one[0], rtol=1e-4, atol=1e-2)

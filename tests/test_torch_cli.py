@@ -334,18 +334,6 @@ def test_sidecar_parsing_matches_the_jax_package(tmp_path, name, text, want):
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("argv", [
-    ["snp", "--devices", "2"], ["align", "--devices", "all"],
-    ["snp", "--coordinator", "localhost:1234"],
-    ["snp", "--num-processes", "2", "--process-id", "0"],
-], ids=["snp_devices_2", "align_devices_all", "snp_coordinator", "snp_processes_2"])
-def test_the_multi_device_flags_are_not_ported(argv, tmp_path):
-    data = os.path.join(GOLD, "data")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli.main([argv[0], os.path.join(data, "reference.fasta"), data,
-                  "-o", str(tmp_path / "out"), "--device", "cpu", *argv[1:]])
-
-
 def test_cuda_without_a_card_raises_before_any_read(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = os.path.join(GOLD, "data")
@@ -357,17 +345,18 @@ def test_cuda_without_a_card_raises_before_any_read(tmp_path, monkeypatch):
 
 def test_align_shards_files_and_refuses_reads_in_memory(sim, port_sim_aln, tmp_path):
     """``align --num-processes 2 --process-id I`` aligns every other file;
-    the two shards together are the whole output. Reads in memory have no
-    files to shard."""
+    the two shards together are the whole output. Reads in memory, which
+    have no files, are sharded by their index instead (``i % 2 == I``)."""
     ref, d = sim
     base = ["align", ref, d, "--batch-reads", "16", *SCAN, "--num-processes", "2"]
     for pid in (0, 1):
         assert cli.main(base + ["-o", str(tmp_path / "aln"),
                                 "--process-id", str(pid)]) == 0
     _same_tree(str(tmp_path / "aln"), port_sim_aln)
-    with pytest.raises(ValueError, match="sharded"):
-        cli.main(base + ["-o", str(tmp_path / "x"), "--process-id", "0"],
-                 reads=list(fast5mod.iter_fast5_dir(d))[:1])
+    reads = list(fast5mod.iter_fast5_dir(d))[:3]
+    assert cli.main(base + ["-o", str(tmp_path / "x"), "--process-id", "1"],
+                    reads=reads) == 0
+    assert os.listdir(tmp_path / "x") == [f"{reads[1].read_id}.txt"]
 
 
 # --------------------------------------------------------------- utils

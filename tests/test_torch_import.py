@@ -56,12 +56,15 @@ def test_no_jax_and_nothing_of_the_jax_package():
         assert "jaxlib" not in roots, f"{path} imports jaxlib"
         assert "nadavca_tpu" not in roots, f"{path} imports nadavca_tpu"
         checked.add(os.path.relpath(path, REPO))
-    assert len(checked) >= 18
+    assert len(checked) >= 21
     for rel in ("nadavca_tpu_torch/ops/subst_tables.py",
                 "nadavca_tpu_torch/ops/cuda_rescore.py",
                 "nadavca_tpu_torch/ops/cuda_dp.py",
                 "nadavca_tpu_torch/joint.py",
-                "nadavca_tpu_torch/convert.py", "chip_smoke.py"):
+                "nadavca_tpu_torch/convert.py", "chip_smoke.py",
+                "nadavca_tpu_torch/parallel/__init__.py",
+                "nadavca_tpu_torch/parallel/sharded.py",
+                "nadavca_tpu_torch/parallel/distributed.py"):
         assert rel in checked, rel
 
 

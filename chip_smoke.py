@@ -29,12 +29,17 @@ Python prep on one (the api's calls), ``align`` (the api's alignments), the
 adaptive band on reads of 300 and 1800 bases (the long bucket at 256 slots;
 the calls of the same run on the CPU), checkpoint and resume, and the native
 prep held against the Python prep on the card's host, with ms per read of
-each. Then several devices and processes on the one card (``multi_device``):
-``parallel.sharded`` on the mesh ``[cuda:0, cuda:0]`` in its three layouts
-against one device, ``cli snp`` in two gloo ranks (spawned) against one
-process, with a checkpoint and a resume, and the JAX package's config 4 (a
-4.6 Mb genome, genome-sharded with deferred merges) in two ranks against one
-process. The earlier phases keep ``prep="python"``, so their numbers compare
+each. Before the command line: the single-core C++ core (``ops/cpu_ref``) on
+16 reads of the main world, ms per read on one host core and its paths
+against the card's, and one batch of reads above 65,536 samples (T =
+131,072, B = 256) through ``api.call_snps``, held against the ``scan`` twin
+on the card. Then several devices and processes on the one card
+(``multi_device``): ``parallel.sharded`` on the mesh ``[cuda:0, cuda:0]`` in
+its three layouts against one device, in one process and in two spawned
+gloo ranks of that mesh each (the seconds and the bytes handed to gloo per
+layout), ``cli snp`` in two gloo ranks (spawned) against one process, with
+a checkpoint and a resume, and the JAX package's config 4 (a 4.6 Mb genome,
+genome-sharded with deferred merges) in two ranks against one process. The earlier phases keep ``prep="python"``, so their numbers compare
 with those of earlier runs. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
 0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
@@ -47,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import multiprocessing
@@ -743,6 +749,57 @@ def tie_only_differences(tag, path_a, path_b, live, mu, sigma,
     return n
 
 
+def hold_against_scan(tag, batch, a, path, cnt, base_ll, model, cfg, ll_atol,
+                      tie_share: float = 1e-4) -> dict:
+    """The ``scan`` twin on the card against the kernels on one staged batch:
+    its Viterbi differs from the kernels' on broken ties only, and its local
+    rescore of the kernels' path agrees with the kernels' rescore (genome
+    tables) on interior positions, within ``ll_atol`` (the table path masks
+    read-local edges to exactly 0, by design, and the span rule positions
+    whose window starts 2048 samples or more past their tile's slab base).
+    At most ``tie_share`` of the live samples may differ, each by a tie.
+    Returns the counts, and the compared positions' mask as ``cmp``."""
+    n, T = batch.n_reads, batch.x.shape[1]
+    L, k = batch.codes.shape[1], cfg.k
+    scan = pipeline.align_batch(batch, model, dataclasses.replace(cfg, snp_rescore="fixed"),
+                                backend="scan", device="cuda")
+    live = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
+    live[n:] = False
+    n_tie = tie_only_differences(tag, path, scan["path"], live, a["mu"], a["sigma"],
+                                 max_share=tie_share)
+    del scan
+    twin_ll = banded_dp.base_loglik_local_batch(
+        a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
+        t_w=cfg.snp_local_window)
+    first_pos = path[:, 0].long()
+    last_pos = torch.gather(path, 1, (a["t_len"].long() - 1).clamp(min=0)[:, None])[:, 0].long()
+    wlen = torch.from_numpy(batch.window_len.astype(np.int64)).to("cuda")
+    i_idx = torch.arange(L, device="cuda")[None, :]
+    interior = ((i_idx >= (first_pos + k)[:, None])
+                & (i_idx < (torch.minimum(wlen, last_pos) - k)[:, None]))
+    interior[n:] = False
+    # positions the span rule masks are 0 on the kernel side only
+    S, _, _, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"],
+                                               batch.ids.shape[1], k,
+                                               cfg.snp_local_window, cnt)
+    S_c = S.clamp(0, T - 1)
+    span_ok = (cuda_rescore.span_ok(S_c, T) if T >= cuda_rescore.SPAN + 256
+               else torch.ones_like(interior))
+    cmp = interior & span_ok
+    assert int(cmp.sum()) > 0.8 * int(wlen[:n].sum()), (tag, int(cmp.sum()),
+                                                         int(wlen[:n].sum()))
+    # table constants are made with numpy's log on the host, the twin's with
+    # torch.log on the card: last-bit differences summed over <= 192 steps
+    torch.testing.assert_close(base_ll[cmp], twin_ll[cmp], rtol=1e-5, atol=ll_atol)
+    edge = ~interior & (i_idx < first_pos[:, None] + k - 1)
+    assert bool((base_ll[edge] == 0).all()), f"{tag}: read-local edges must be exactly 0"
+    return {"tie_differences": n_tie, "live_samples": int(live.sum()),
+            "interior_positions": int(cmp.sum()),
+            "span_masked_interior_positions": int((interior & ~span_ok).sum()),
+            "ll_max_abs_diff": float((base_ll[cmp] - twin_ll[cmp]).abs().max()),
+            "cmp": cmp}
+
+
 # -------------------------------------------------------- phase 4: main path
 def run_api(reference, raws, fast5_dir, cfg, model, device, batch_reads):
     """call_snps and align_signal through the public entry points: from fast5
@@ -1106,6 +1163,125 @@ def joint_phase(reference, sub, model, batch_reads) -> dict:
                      "joint_pass_seconds_card": seconds["cuda"],
                      "joint_pass_seconds_cpu": seconds["cpu"]}
     return out
+
+
+# ------------------------------------- the single-core C++ core, long reads
+# reads of the main world that the C++ core aligns and rescores
+CPU_REF_READS = 16
+# Queue 3 item 5 of the roadmap: reads above the last bucket edge (65,536
+# samples), so that the batch pads to 131,072, at the long band
+LONG_READS, LONG_BASES = 8, 8000
+# the largest share of live samples on which a path may differ by a broken
+# tie: the C++ core against the card (readings in cpu_ref_phase), and the
+# long batch against the scan twin (77 of 640,564, 1.2e-4, on the card); the
+# long batch's reads are 8, so a few runs of ties weigh more than over the
+# main path's 256 reads (limit 1e-4)
+CPU_REF_TIE_SHARE, LONG_TIE_SHARE = 2e-3, 3e-4
+
+
+def cpu_ref_phase(records, model, cfg) -> dict:
+    """The C++ core (``ops/cpu_ref``, one host core, one read at a time) on
+    ``CPU_REF_READS`` reads of the main world: ms per read of its banded
+    Viterbi and of its local rescore, and its paths against the card's
+    kernels on the same reads and bands (per-sample ``lo`` expanded from the
+    chunked bands): different on broken ties only."""
+    from nadavca_tpu_torch.ops import cpu_ref
+
+    batch, a = staged_batch(records[:CPU_REF_READS], model, cfg)
+    res, _ = cuda_dp.cuda_viterbi_batch(a["x"], a["t_len"], a["mu"], a["sigma"],
+                                        a["n_ref"], a["lo"], a["delta"], cfg)
+    t0 = time.perf_counter()
+    cpu_ref.get_lib()
+    build_s = time.perf_counter() - t0
+    T = batch.x.shape[1]
+    lo_t = batch.bands.expand(T)
+    paths = np.zeros((batch.x.shape[0], T), np.int32)
+    vit_s = loc_s = 0.0
+    for r in range(batch.n_reads):
+        t, n = int(batch.t_len[r]), int(batch.n_ref[r])
+        t0 = time.perf_counter()
+        _, p = cpu_ref.banded_viterbi_cpu(batch.x[r, :t], batch.mu[r, :n],
+                                          batch.sigma[r, :n], lo_t[r, :t],
+                                          cfg.band_width, cfg.log_p_stay, cfg.log_p_move)
+        t1 = time.perf_counter()
+        cpu_ref.base_loglik_local_cpu(batch.x[r, :t], batch.codes[r, :batch.window_len[r]],
+                                      p, model.level_mean, model.level_std, cfg.k,
+                                      cfg.log_p_stay, cfg.log_p_move, cfg.snp_local_window)
+        loc_s += time.perf_counter() - t1
+        vit_s += t1 - t0
+        paths[r, :t] = p
+    live = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
+    live[batch.n_reads:] = False
+    # the core's float32 log-density rounds unlike the kernels' folded
+    # polynomial, so a tie in a homopolymer run may fall the other way; every
+    # difference must be such a tie. Readings: 0 of 157,684 live samples on
+    # the card, 28 of 48,241 (5.8e-4) in a CPU rehearsal
+    n_tie = tie_only_differences("C++ core against the card", res.path,
+                                 torch.from_numpy(paths).to("cuda"), live, a["mu"],
+                                 a["sigma"], max_share=CPU_REF_TIE_SHARE)
+    n = batch.n_reads
+    return {"phase": "cpu_ref", "reads": n, "mean_samples": float(batch.t_len[:n].mean()),
+            "band_width": cfg.band_width, "t_w": cfg.snp_local_window,
+            "build_or_load_seconds": build_s, "ms_per_read": (vit_s + loc_s) * 1e3 / n,
+            "viterbi_ms_per_read": vit_s * 1e3 / n, "local_rescore_ms_per_read":
+            loc_s * 1e3 / n, "host_cores": 1, "path_tie_differences_vs_card": n_tie,
+            "live_samples": int(live.sum())}
+
+
+def long_read_phase(seed, model, small=False) -> dict:
+    """One batch of ``LONG_READS`` reads of ``LONG_BASES`` bases (above
+    65,536 samples each; ``_bucket`` pads them to 131,072) at the long band
+    through ``api.call_snps``, then the same batch at the pipeline level held
+    against the ``scan`` twin on the card (paths equal but ties, the local
+    rescore within 2e-3). Peak device memory of the call and the decision
+    words' bytes. ``small``: reads of 1500 bases."""
+    cfg = nt.AlignConfig(band_width=nt.AlignConfig().band_width_long)
+    n_bases = 1500 if small else LONG_BASES
+    t0 = time.perf_counter()
+    _, ref, reads, _ = make_world(seed + 8, 4 * n_bases, 0, LONG_READS, n_bases)
+    raws, records = records_of(reads, ref, model, cfg)
+    world_s = time.perf_counter() - t0
+    assert len(records) == LONG_READS, len(records)
+    if not small:
+        assert min(len(r.signal) for r in records) > 65536, [len(r.signal) for r in records]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    calls = api.call_snps_reads(ref, raws, config=cfg, model=model, backend="cuda",
+                                batch_reads=LONG_READS, prep="python", device="cuda")
+    sync()
+    api_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = read_launches()
+    expect_launches("long reads", launches, {k: 1 for k in LOCAL_KERNELS})
+    tables = build_subst_tables(ref, model, device="cuda")
+    batch, a = staged_batch(records, model, cfg, subst=tables)
+    if not small:
+        assert batch.x.shape[1] == 131072, batch.x.shape
+    N = batch.ids.shape[1]
+    res, decs = cuda_dp.cuda_viterbi_batch(
+        a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"], a["delta"], cfg,
+        count_lanes=cuda_rescore.count_lanes(N))
+    dec_bytes = sum(d.numel() * d.element_size() for d in decs)
+    del decs
+    base_ll = cuda_rescore.base_loglik_local_cuda(
+        a["x"], res.path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], cfg.k, cfg,
+        t_w=cfg.snp_local_window, tables=tables, window_off=a["woff"], cnt=res.counts,
+        window_off_range=a["woff_range"])
+    t0 = time.perf_counter()
+    twin = hold_against_scan("long reads against the scan twin", batch, a, res.path,
+                             res.counts, base_ll, model, cfg, ll_atol=2e-3,
+                             tie_share=LONG_TIE_SHARE)
+    twin.pop("cmp")
+    return {"phase": "long_reads", "reads": LONG_READS, "bases": n_bases,
+            "samples": [len(r.signal) for r in records],
+            "batch_shape": list(batch.x.shape), "window_shape": list(batch.codes.shape),
+            "band_width": cfg.band_width, "world_seconds": world_s,
+            "call_snps_seconds": api_s, "calls": len(calls), "launches": launches,
+            "peak_device_mb_call": peak_mb, "decision_word_bytes": dec_bytes,
+            "decision_word_bytes_rule": "R*T*B/8 per plane",
+            "scan_twin": twin, "scan_twin_seconds": time.perf_counter() - t0}
 
 
 # --------------------------------------------------- phase 6: the command line
@@ -1476,7 +1652,8 @@ def sharded_part(reference, model, records, cfg, batch_reads, tables) -> dict:
     mesh2 = sharded.Mesh((torch.device("cuda", 0),) * 2)
     out = {"mesh": ["cuda:0", "cuda:0"], "batches": len(batches),
            "rows_per_block": batch_reads // 2, "one_device_seconds": one["seconds"],
-           "calls": len(one["calls"])}
+           "calls": len(one["calls"]), "one_device": (one["acc"], one["cov"], one["votes"]),
+           "batches_of_world": batches}
     key = lambda c: (c.position, c.ref_base, c.alt_base, c.coverage)
     for name, gs, md in (("replicated", False, False), ("genome_sharded", True, False),
                          ("deferred", False, True)):
@@ -1499,6 +1676,139 @@ def sharded_part(reference, model, records, cfg, batch_reads, tables) -> dict:
     return out
 
 
+# (d): the local devices of each rank, all on the one card
+MD_LOCAL = 2
+MD_LAYOUTS = (("replicated", False, False), ("genome_sharded", True, False),
+              ("deferred", False, True))
+
+
+def _count_wire_bytes(box: list) -> None:
+    """Add the bytes handed to each collective of this process to box[0]."""
+    import torch.distributed as tdist
+
+    def counted(fn):
+        def call(*args, **kw):
+            t = args[-1] if fn.__name__ == "reduce_scatter_tensor" else args[0]
+            if isinstance(t, list):
+                t = t[0]
+            box[0] += t.numel() * t.element_size()
+            return fn(*args, **kw)
+        return call
+
+    for name in ("all_reduce", "reduce_scatter_tensor", "all_gather"):
+        setattr(tdist, name, counted(getattr(tdist, name)))
+
+
+def group_rank(rank, port, batches, model, reference, q) -> None:
+    """One spawned rank of part (d): the rank's rows of each batch on its
+    ``MD_LOCAL`` mesh positions ([cuda:0, cuda:0]) of a gloo group of
+    ``MD_RANKS`` ranks, through ``parallel.sharded`` in each layout. Puts
+    (rank, per layout: seconds, launches, bytes, the merged accumulators)
+    on ``q``, or the traceback."""
+    from nadavca_tpu_torch.parallel import distributed as dist
+
+    try:
+        devs = dist.initialize_distributed(f"127.0.0.1:{port}", MD_RANKS, rank,
+                                           "cuda", n_local=MD_LOCAL)
+        assert torch.distributed.get_backend() == "gloo"
+        wire = [0]
+        _count_wire_bytes(wire)
+        mesh = sharded.process_mesh(devs)
+        cfg = nt.AlignConfig()
+        G = len(reference.contigs[0])
+        reps = sharded.replicate_tables(mesh, build_subst_tables(reference, model,
+                                                                 device="cuda"))
+        out = {}
+        for name, gs, md in MD_LAYOUTS:
+            Gp = -(-G // (mesh.size * 128)) * mesh.size * 128 if gs else G
+            accs = sharded.make_accumulators_sharded(mesh, Gp, gs, md)
+            step = sharded.make_sharded_step(mesh, cfg, Gp, gs, with_path=False,
+                                             merge_deferred=md)
+            reset_launches()
+            sync()
+            w0, t0 = wire[0], time.perf_counter()
+            for b in batches:
+                r = b.x.shape[0] // MD_RANKS
+                rows = pipeline.batch_rows(b, rank * r, (rank + 1) * r)
+                _, *accs = step(sharded.shard_batch(mesh, rows, model, cfg, "cuda", reps),
+                                *accs)
+            sync()
+            secs, step_bytes = time.perf_counter() - t0, wire[0] - w0
+            launches = read_launches()
+            w0, t0 = wire[0], time.perf_counter()
+            if md:
+                merge = sharded.make_merge_fn(mesh, Gp, gs)
+                m1, m2 = merge(*accs), merge(*accs)
+                assert all(torch.equal(x, y) for a, b in zip(m1, m2)
+                           for x, y in zip(a, b)), "merging the partials twice differs"
+                accs = m1
+            got = [sharded.fetch(mesh, a, gs)[:G] for a in accs]
+            out[name] = {"seconds": secs, "launches": launches, "Gp": Gp,
+                         "bytes_per_batch": step_bytes / len(batches),
+                         "merge_fetch_seconds": time.perf_counter() - t0,
+                         "merge_fetch_bytes": wire[0] - w0, "accs": got}
+        torch.distributed.destroy_process_group()
+        q.put((rank, out))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+
+
+def group_part(model, reference, batches, one) -> dict:
+    """(d) ``parallel.sharded`` under a process group whose ranks drive
+    several devices: ``MD_RANKS`` spawned gloo ranks, each with the mesh
+    [cuda:0, cuda:0], run the main world's batches in each layout against
+    one device (``one``: acc, cov, votes). Gates: ``cov`` and ``votes``
+    exact, ``acc`` within ``MD_ACC_TOL`` on every rank, the deferred merge
+    pure, ``viterbi_fill`` launched at least once a position and batch."""
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=group_rank, args=(r, port, batches, model, reference, q))
+             for r in range(MD_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(MD_RANKS):
+            rank, res = q.get(timeout=RANK_TIMEOUT_S)
+            assert isinstance(res, dict), (rank, res[-3000:])
+            got[rank] = res
+        secs = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    out = {"ranks": MD_RANKS, "positions_per_rank": MD_LOCAL,
+           "mesh_per_rank": ["cuda:0"] * MD_LOCAL, "backend": "gloo",
+           "batches": len(batches), "rows_per_position": batches[0].x.shape[0]
+           // (MD_RANKS * MD_LOCAL), "seconds_with_process_start": secs}
+    for name, _, _ in MD_LAYOUTS:
+        per = [got[r][name] for r in range(MD_RANKS)]
+        for r, res in enumerate(per):
+            acc, cov, votes = res["accs"]
+            assert np.array_equal(cov, one[1]), (name, r, "cov")
+            assert np.array_equal(votes, one[2]), (name, r, "votes")
+            np.testing.assert_allclose(acc, one[0], **MD_ACC_TOL)
+            n_fill = res["launches"]["viterbi_fill"]
+            assert n_fill >= MD_LOCAL * len(batches), (name, r, res["launches"])
+        out[name] = {
+            "Gp": per[0]["Gp"],
+            "seconds": [res["seconds"] for res in per],
+            "gloo_bytes_per_batch": [res["bytes_per_batch"] for res in per],
+            "merge_fetch_seconds": [res["merge_fetch_seconds"] for res in per],
+            "merge_fetch_gloo_bytes": [res["merge_fetch_bytes"] for res in per],
+            "viterbi_fill_launches": [res["launches"]["viterbi_fill"] for res in per],
+            "cov_equal": int((per[0]["accs"][1] == one[1]).sum()),
+            "acc_max_abs_diff": max(float(np.abs(res["accs"][0] - one[0]).max())
+                                    for res in per)}
+    return out
+
+
 def multi_device_phase(seed, model, reference, raws, records, batch_reads,
                        smi, small=False) -> dict:
     """Several devices on the one card: (a) the sharded step in one process,
@@ -1516,6 +1826,12 @@ def multi_device_phase(seed, model, reference, raws, records, batch_reads,
     out["a_sharded"] = sharded_part(reference, model, records, cfg, batch_reads, tables)
     del tables
     out["a_sharded"]["seconds"] = time.perf_counter() - t0
+    one = out["a_sharded"].pop("one_device")
+    batches = out["a_sharded"].pop("batches_of_world")
+    # (d) two ranks of two positions each against the same one device
+    t0 = time.perf_counter()
+    out["d_group_of_two_devices_a_rank"] = group_part(model, reference, batches, one)
+    out["d_group_of_two_devices_a_rank"]["seconds"] = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
         # (b) the main world through the CLI: one process, then two ranks
@@ -1801,49 +2117,16 @@ def main() -> int:
     split["subst_build_once_per_genome"] = subst_build_ms
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     n = batch.n_reads
-    T = batch.x.shape[1]
-    L = batch.codes.shape[1]
     k = cfg.k
     path_np = path.cpu().numpy()
     for r in range(n):
         d = np.diff(path_np[r, : int(batch.t_len[r])])
         assert d.size == 0 or (d.min() >= 0 and d.max() <= 1), (r, d.min(), d.max())
 
-    # (b) the scan twin on the card: its Viterbi differs from the kernels' on
-    # broken ties only, and its local rescore of the kernels' path agrees
-    # with K5 on interior positions (the table path masks read-local edges to
-    # exactly 0, by design)
-    scan = pipeline.align_batch(batch, model, cfg_fixed, backend="scan", device="cuda")
-    live = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
-    live[n:] = False
-    n_tie = tie_only_differences("scan twin on the card", path, scan["path"], live,
-                                 a["mu"], a["sigma"])
-    del scan
-    twin_ll = banded_dp.base_loglik_local_batch(
-        a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
-        t_w=cfg.snp_local_window)
-    first_pos = path[:, 0].long()
-    last_pos = torch.gather(path, 1, (a["t_len"].long() - 1).clamp(min=0)[:, None])[:, 0].long()
-    wlen = torch.from_numpy(batch.window_len.astype(np.int64)).to("cuda")
-    i_idx = torch.arange(L, device="cuda")[None, :]
-    interior = ((i_idx >= (first_pos + k)[:, None])
-                & (i_idx < (torch.minimum(wlen, last_pos) - k)[:, None]))
-    interior[n:] = False
-    # positions the span rule masks are 0 on the kernel side only
-    S, _, _, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"],
-                                               batch.ids.shape[1], k,
-                                               cfg.snp_local_window, cnt)
-    S_c = S.clamp(0, T - 1)
-    span_ok = (cuda_rescore.span_ok(S_c, T) if T >= cuda_rescore.SPAN + 256
-               else torch.ones_like(interior))
-    cmp = interior & span_ok
-    assert int(cmp.sum()) > 0.8 * int(wlen[:n].sum()), (int(cmp.sum()), int(wlen[:n].sum()))
-    # table constants are made with numpy's log on the host, the twin's with
-    # torch.log on the card: last-bit differences summed over <= 192 steps
-    torch.testing.assert_close(base_ll[cmp], twin_ll[cmp], rtol=1e-5, atol=1e-3)
-    edge = ~interior & (i_idx < first_pos[:, None] + k - 1)
-    assert bool((base_ll[edge] == 0).all()), "read-local edges must be exactly 0"
-    del twin_ll
+    # (b) the scan twin on the card
+    twin = hold_against_scan("scan twin on the card", batch, a, path, cnt, base_ll,
+                             model, cfg, ll_atol=1e-3)
+    cmp = twin.pop("cmp")
 
     # K6: the local rescore without genome tables, through the pipeline, held
     # against K5's result on the same positions; one launch from the walk's
@@ -1893,10 +2176,10 @@ def main() -> int:
           "calls": len(calls), "planted": len(truth), "true_positive": tp,
           "recall": recall, "precision": tp / max(len(calls), 1),
           "cpu_plain_agrees_reads": len(f_alns), "cpu_compare_seconds": cpu_compare_s,
-          "scan_on_card_tie_differences": n_tie,
-          "scan_on_card_live_samples": int(live.sum()),
-          "scan_rescore_interior_positions": int(cmp.sum()),
-          "span_masked_interior_positions": int((interior & ~span_ok).sum())})
+          "scan_on_card_tie_differences": twin["tie_differences"],
+          "scan_on_card_live_samples": twin["live_samples"],
+          "scan_rescore_interior_positions": twin["interior_positions"],
+          "span_masked_interior_positions": twin["span_masked_interior_positions"]})
     del batch, a, path, base_ll, tables
 
     # ---- phase 5: this slice's paths
@@ -1915,6 +2198,9 @@ def main() -> int:
                                    "rescore_total_ms": no_tab_stage,
                                    "rescore_kernel_ms": no_tab_kernel,
                                    "peak_device_mb_one_batch": no_tab_peak_mb}})
+    # ---- the C++ core against the card, and a batch of long reads
+    emit(cpu_ref_phase(records, model, cfg))
+    emit(long_read_phase(args.seed, model, small))
     # ---- phase 6: the command line, as users run it
     emit(cli_phase(args.seed, model, reference, raws, records, calls, truth,
                    batch_reads))

@@ -21,15 +21,17 @@ Several devices and processes (``parallel/``), as in the JAX package:
   the JAX package's thresholds, and writes one checkpoint file in the JAX
   package's one-process layout.
 - ``snp --coordinator HOST:PORT --num-processes N --process-id I`` joins a
-  ``torch.distributed`` group (``parallel/distributed.py``: NCCL when each
-  rank has a card of its own, gloo otherwise). Each process drives ONE
-  device (rank r on ``cuda:r``): more than one device per process under a
-  coordinator raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 4).
-  Each process streams its own shard of the inputs, the processes agree on
-  every batch's shape, process 0 writes the checkpoint's accumulators and
-  the VCF. Without ``--coordinator`` the run is one process, as in the JAX
-  package. ``align --num-processes N --process-id I`` shards the inputs and
-  needs no process group.
+  ``torch.distributed`` group (``parallel/distributed.py``: NCCL when every
+  mesh position has a card of its own, gloo otherwise). Each process drives
+  ``--devices`` local devices (position ``r·n + i`` of the group's mesh on
+  ``cuda:((r·n + i) mod cards)``; more than the cards present raises, as in
+  one process), every process as many. Each process streams its own shard
+  of the inputs, the processes agree on every batch's shape, process 0
+  writes the checkpoint's accumulators and the VCF; the checkpoint does not
+  depend on how many devices a process drives. Without ``--coordinator`` the
+  run is one process, as in the JAX package. ``align --num-processes N
+  --process-id I`` shards the inputs over processes that each run their
+  ``--devices`` and needs no process group.
 
 Differences from the JAX package's CLI:
 
@@ -128,18 +130,19 @@ def _parse_devices(args, dev: torch.device) -> sharded.Mesh:
 def _init_distributed(args, dev: torch.device):
     """Join the process group if ``--coordinator`` was given.
 
-    Returns (multihost, process_id, num_processes, this process's device).
-    Without a coordinator the run is one process, whatever
-    ``--num-processes`` says (as in the JAX package)."""
+    Returns (multihost, process_id, num_processes, the mesh). Without a
+    coordinator the run is one process, whatever ``--num-processes`` says
+    (as in the JAX package). ``--devices`` is checked against the cards
+    before the group is joined, as in one process."""
+    mesh = _parse_devices(args, dev)
     if not args.coordinator:
-        return False, 0, 1, dev
-    if _n_devices(args, dev) != 1:
-        raise NotImplementedError(
-            f"--devices {args.devices} under --coordinator: each process drives "
-            "one device (ROADMAP.md, Queue 1 item 4)")
-    dev = dist.initialize_distributed(args.coordinator, args.num_processes,
-                                      args.process_id, device=dev.type)
-    return dist.process_count() > 1, dist.process_index(), dist.process_count(), dev
+        return False, 0, 1, mesh
+    devs = dist.initialize_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, device=dev.type,
+                                       n_local=len(mesh.devices))
+    if dist.process_count() == 1:
+        return False, 0, 1, mesh
+    return True, dist.process_index(), dist.process_count(), sharded.process_mesh(devs)
 
 
 def _stream_groups(records, batch_reads, cfg):
@@ -638,8 +641,8 @@ def cmd_snp(args) -> int:
     cfg = _load_cfg(args)
     dev = _device(args)
     _check_supported(args, cfg, dev)
-    multihost, pid, nproc, dev = _init_distributed(args, dev)
-    mesh = sharded.process_mesh(dev) if multihost else _parse_devices(args, dev)
+    multihost, pid, nproc, mesh = _init_distributed(args, dev)
+    dev = mesh.devices[0]
     n_dev = mesh.size
     model = _load_model(args, cfg)
     genome = Genome.from_fasta(args.reference)
@@ -961,8 +964,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler chrome trace here")
         sp.add_argument("--coordinator",
                         help="process group address host:port (snp: joins a "
-                             "torch.distributed group, one device per "
-                             "process; every process passes the same value)")
+                             "torch.distributed group, each process driving "
+                             "its --devices; every process passes the same "
+                             "value)")
         sp.add_argument("--num-processes", type=int,
                         help="total processes in the group (align: input "
                              "sharding, no group)")

@@ -1,16 +1,21 @@
-"""Process groups: one process per device, joined by ``torch.distributed``.
+"""Process groups: processes joined by ``torch.distributed``, each driving
+one or more local devices.
 
 Counterpart of ``nadavca_tpu/parallel/distributed.py``. Each process of the
 group streams its own shard of the reads (shared-nothing ingest), runs the
-sharded step on its one device, and the accumulators are merged by the
+sharded step on its local devices, and the accumulators are merged by the
 collectives of ``parallel/sharded.py``; process 0 writes the results.
+
+Mesh positions are numbered process-major, as in the JAX package's global
+mesh: process r's local device i is position ``r·n + i`` (n local devices a
+process), and on CUDA it is ``cuda:((r·n + i) mod cards)``.
 
 Backend rule, decided once by :func:`initialize_distributed`:
 
-- NCCL when the device is CUDA and every rank has a card of its own (rank r
-  on ``cuda:r``, world size at most ``torch.cuda.device_count()``);
-- gloo otherwise: ranks on the CPU, and ranks that share a card. Under gloo
-  a collective on a CUDA tensor copies it to the host and back. The
+- NCCL when the device is CUDA and every position has a card of its own
+  (``num_processes · n ≤ torch.cuda.device_count()``);
+- gloo otherwise: ranks on the CPU, and positions that share a card. Under
+  gloo a collective on a CUDA tensor copies it to the host and back. The
   collectives below choose that copy from the backend the group was started
   with, never by catching a failed collective.
 
@@ -36,43 +41,50 @@ import torch.distributed as dist
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
 
-def choose_backend(device_type: str, num_processes: int) -> str:
-    """``"nccl"`` when every rank gets a CUDA device of its own, else
-    ``"gloo"``."""
-    if device_type == "cuda" and num_processes <= torch.cuda.device_count():
+def choose_backend(device_type: str, num_processes: int, n_local: int = 1) -> str:
+    """``"nccl"`` when every mesh position (``n_local`` a process) gets a
+    CUDA device of its own, else ``"gloo"``."""
+    if device_type == "cuda" and num_processes * n_local <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
 
 
-def rank_device(device_type: str, process_id: int, num_processes: int) -> torch.device:
-    """The device of rank ``process_id``: ``cuda:r`` when each rank has a card
-    of its own; ranks share the cards round robin otherwise (gloo)."""
+def rank_devices(device_type: str, process_id: int, num_processes: int,
+                 n_local: int = 1) -> List[torch.device]:
+    """The ``n_local`` devices of rank ``process_id``: position ``r·n + i`` on
+    ``cuda:((r·n + i) mod cards)``, so positions have cards of their own
+    while there are enough and share them round robin otherwise (gloo); on
+    the CPU, n positions on the CPU."""
     if device_type != "cuda":
-        return torch.device(device_type)
+        return [torch.device(device_type)] * n_local
     n_cards = torch.cuda.device_count()
     if n_cards == 0:
         raise RuntimeError("a CUDA rank, but torch sees no CUDA device")
-    return torch.device("cuda", process_id % n_cards)
+    return [torch.device("cuda", (process_id * n_local + i) % n_cards)
+            for i in range(n_local)]
 
 
 def initialize_distributed(coordinator: str, num_processes: int, process_id: int,
-                           device: str = "cuda") -> torch.device:
+                           device: str = "cuda", n_local: int = 1) -> List[torch.device]:
     """Join the process group at ``coordinator`` (``host:port``; rank 0
-    listens there) and return this rank's device. Every collective of the
-    group waits at most ``COLLECTIVE_TIMEOUT``."""
+    listens there) and return this rank's ``n_local`` devices. Every
+    collective of the group waits at most ``COLLECTIVE_TIMEOUT``."""
     if num_processes is None or process_id is None:
         raise ValueError("a process group needs num_processes and process_id")
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id} out of range [0, {num_processes})")
+    if n_local < 1:
+        raise ValueError(f"{n_local} local devices")
     device_type = torch.device(device).type
-    dev = rank_device(device_type, process_id, num_processes)
-    backend = choose_backend(device_type, num_processes)
+    devs = rank_devices(device_type, process_id, num_processes, n_local)
+    backend = choose_backend(device_type, num_processes, n_local)
     if backend == "nccl":
-        torch.cuda.set_device(dev)
+        # the group's one device of this rank: its collectives run on devs[0]
+        torch.cuda.set_device(devs[0])
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id,
                             timeout=COLLECTIVE_TIMEOUT)
-    return dev
+    return devs
 
 
 def process_index() -> int:
@@ -111,8 +123,8 @@ def all_reduce(t: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
-    """Rank r's block of the sum over the ranks: rows ``[r·n/W, (r+1)·n/W)``
-    of ``t``'s first axis (``psum_scatter`` over contiguous blocks)."""
+    """Rank r's block of the sum over the W ranks: rows ``[r·m/W, (r+1)·m/W)``
+    of ``t``'s m rows (``psum_scatter`` over contiguous blocks)."""
     W = dist.get_world_size()
     if t.shape[0] % W:
         raise ValueError(f"{t.shape[0]} rows do not split over {W} ranks")

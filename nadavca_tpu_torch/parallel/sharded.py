@@ -9,9 +9,10 @@ there, so a shard launches exactly the kernels of the one-device path. Each
 block then scatters through ``call.scatter_values``, shared with
 ``accumulate_batch``.
 
-Under a process group (``parallel/distributed.py``) each rank holds one
-position of the mesh: its batch is its one block, and the sums below become
-``all_reduce`` and ``reduce_scatter_tensor``.
+Under a process group (``parallel/distributed.py``) each rank holds n
+consecutive positions of the mesh (process-major, as the JAX package's
+global mesh orders them): its batch is split into its n blocks, and the sums
+below become one ``all_reduce`` or ``reduce_scatter_tensor`` a process.
 
 Accumulator layouts, as in the JAX package; each is a list with one tensor
 per local position:
@@ -48,27 +49,23 @@ from . import distributed as dist
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The devices of a sharded run. ``devices`` are this process's mesh
-    positions in order. With ``distributed`` the mesh spans the process
-    group: one position per rank, this rank's being ``devices[0]``."""
+    positions in order (a device may repeat). With ``distributed`` the mesh
+    spans the process group: every process holds ``len(devices)``
+    positions, process r positions ``r·n .. r·n + n - 1``."""
 
     devices: Tuple[torch.device, ...]
     distributed: bool = False
 
-    def __post_init__(self):
-        if self.distributed and len(self.devices) != 1:
-            raise NotImplementedError(
-                "one device per process under a process group (ROADMAP.md, "
-                "Queue 1 item 4)")
-
     @property
     def size(self) -> int:
         """Positions in the whole mesh."""
-        return dist.process_count() if self.distributed else len(self.devices)
+        n = len(self.devices)
+        return dist.process_count() * n if self.distributed else n
 
     @property
     def first(self) -> int:
         """Mesh index of ``devices[0]``."""
-        return dist.process_index() if self.distributed else 0
+        return dist.process_index() * len(self.devices) if self.distributed else 0
 
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
@@ -88,9 +85,15 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     return Mesh((dev,) * n)
 
 
-def process_mesh(device: torch.device) -> Mesh:
-    """The mesh of a process group: this rank's one device."""
-    return Mesh((torch.device(device),), distributed=True)
+def process_mesh(devices: Sequence[torch.device]) -> Mesh:
+    """The mesh of a process group: this rank's local devices. Every rank
+    must hold as many (a collective checks it: every rank calls this)."""
+    devices = tuple(torch.device(d) for d in devices)
+    counts = dist.process_allgather(np.asarray([len(devices)], np.int64)).ravel()
+    if (counts != len(devices)).any():
+        raise ValueError(f"the ranks hold {counts.tolist()} devices each; "
+                         "every rank must hold as many")
+    return Mesh(devices, distributed=True)
 
 
 def replicate_tables(mesh: Mesh, tables):
@@ -122,7 +125,7 @@ def shard_batch(mesh: Mesh, batch: pipelinemod.Batch, model, cfg: AlignConfig,
     and stage each on its device. ``tables``: :func:`replicate_tables`.
     ``window_start`` replaces ``batch.window_start`` in the scatter (the CLI
     adds the contigs' offsets in the concatenated genome). Under a process
-    group the batch is this rank's one block."""
+    group the batch is this rank's rows only."""
     n = len(mesh.devices)
     R = batch.x.shape[0]
     if R % n:
@@ -146,23 +149,31 @@ def shard_batch(mesh: Mesh, batch: pipelinemod.Batch, model, cfg: AlignConfig,
 def _reduce(mesh: Mesh, parts: Sequence[torch.Tensor], scatter: bool) -> List[torch.Tensor]:
     """The sum of one tensor per mesh position, in the layout of each local
     position: all of it (replicated), or its genome slice (``scatter``).
-    New tensors; ``parts`` are left as they were."""
-    if mesh.distributed:
-        (p,) = parts
-        return [dist.reduce_scatter(p) if scatter else dist.all_reduce(p)]
+    New tensors; ``parts`` are left as they were.
+
+    The local parts are summed on ``devices[0]`` first. Under a process
+    group one collective a process follows, on that one tensor: torch's
+    process groups take one device a rank, so the several local tensors of
+    a rank cannot enter a collective together as XLA's psum takes them.
+    Replicated, the ``all_reduce``'s sum is copied to every local device;
+    genome-sharded, the ``reduce_scatter`` leaves this process its n
+    consecutive slices (rows ``first·G/size`` on), split one a device."""
     dev0 = mesh.devices[0]
     total = parts[0].to(dev0, copy=True)
     for p in parts[1:]:
         total += p.to(dev0)
+    if mesh.distributed:
+        total = dist.reduce_scatter(total) if scatter else dist.all_reduce(total)
     if not scatter:
         return [total.to(d) for d in mesh.devices]
-    rows = total.shape[0] // mesh.size
+    rows = total.shape[0] // len(mesh.devices)
     return [total[i * rows:(i + 1) * rows].to(d, copy=True)
             for i, d in enumerate(mesh.devices)]
 
 
 def _cat(mesh: Mesh, ts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """This process's blocks of a per-row result, joined on ``devices[0]``."""
+    """This process's blocks of a per-row result, or its genome slices, in
+    order, joined on ``devices[0]``."""
     return torch.cat([t.to(mesh.devices[0]) for t in ts])
 
 
@@ -271,9 +282,9 @@ def make_merge_fn(mesh: Mesh, genome_len: int, genome_sharded: bool = False):
 
 def fetch(mesh: Mesh, parts: Sequence[torch.Tensor], genome_sharded: bool = False) -> np.ndarray:
     """One accumulator of a per-batch layout, whole, on the host (under a
-    process group a collective when genome-sharded)."""
-    if mesh.distributed:
-        return dist.fetch_replicated(parts[0], genome_sharded)
+    process group a collective when genome-sharded: every process's slices,
+    joined in mesh order)."""
     if not genome_sharded:
         return parts[0].cpu().numpy()
-    return torch.cat([p.cpu() for p in parts]).numpy()
+    mine = _cat(mesh, parts)
+    return dist.fetch_replicated(mine, True) if mesh.distributed else mine.cpu().numpy()

@@ -499,3 +499,60 @@ def test_sharded_step_on_one_card_twice_equals_one_device(card):
         np.testing.assert_array_equal(got[1], one[1])
         np.testing.assert_array_equal(got[2], one[2])
         np.testing.assert_allclose(got[0], one[0], rtol=1e-4, atol=1e-2)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the root of the repo, as a module: the card tests
+    share its comparison with the scan twin."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_long_reads_above_the_last_bucket_edge(card):
+    """8 reads of 8,000 bases (above 65,536 samples each, so the batch pads
+    to 131,072) at the long band of 256 through ``api.call_snps``; the same
+    batch against the ``scan`` twin on the card (``chip_smoke``'s
+    ``hold_against_scan``): paths equal but for ties between identical
+    levels, the twin's local rescore of the kernels' path within 2e-3 of the
+    kernels' on interior positions the span rule keeps."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import api, pipeline
+    from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
+    from nadavca_tpu_torch.ops import cuda_rescore
+    from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
+
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(12)
+    model = nt.default_model()
+    cfg = AlignConfig(band_width=256)
+    genome = random_genome(rng, length=32000)
+    reads = [simulate_read(genome, genome.contigs[0].name, model, rng, read_len=8000,
+                           read_id=f"long{i}") for i in range(8)]
+    raws = [api.raw_read_from_simulated(r) for r in reads]
+    before = _launches()
+    calls = api.call_snps_reads(genome, raws, config=cfg, model=model, batch_reads=8,
+                                prep="python", device="cuda")
+    torch.cuda.synchronize()
+    assert _launches()["viterbi_fill"] - before["viterbi_fill"] == 1
+    assert isinstance(calls, list)
+    records = api._preprocess(raws, genome, model, cfg, prep="python")
+    assert min(len(r.signal) for r in records) > 65536
+    tables = build_subst_tables(genome, model, device=card)
+    batch = pipeline.assemble_batch(records, model, cfg)
+    assert batch.x.shape[1] == 131072
+    out = pipeline.align_batch(batch, model, cfg, backend="cuda", device=card,
+                               subst=tables)
+    a = pipeline.stage_batch(batch, model, cfg, "cuda", device=card, subst=tables)
+    res, _ = cuda_dp.cuda_viterbi_batch(
+        a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"], a["delta"], cfg,
+        count_lanes=cuda_rescore.count_lanes(batch.ids.shape[1]))
+    assert torch.equal(res.path, out["path"])
+    smoke.hold_against_scan("long reads", batch, a, out["path"], res.counts,
+                            out["base_loglik"], model, cfg, ll_atol=2e-3,
+                            tie_share=smoke.LONG_TIE_SHARE)

@@ -80,6 +80,27 @@ def test_align_on_several_devices_gives_the_one_device_files(world, tmp_path, de
         assert open(os.path.join(one, n)).read() == open(os.path.join(many, n)).read()
 
 
+def test_align_shards_files_over_processes_of_two_devices(world, tmp_path):
+    """``align --num-processes 2 --process-id I --devices 2``: each process
+    aligns its files on its two devices, without a group; together they
+    write the one device's files."""
+    ref, d, _ = world
+    base = ["align", ref, d, "--backend", "cuda", "--device", "cpu",
+            "--batch-reads", "8"]
+    one = str(tmp_path / "one")
+    assert cli.main(base + ["-o", one]) == 0
+    parts = [str(tmp_path / f"p{i}") for i in range(2)]
+    for i, out in enumerate(parts):
+        assert cli.main(base + ["-o", out, "--devices", "2", "--num-processes", "2",
+                                "--process-id", str(i)]) == 0
+    got = [sorted(os.listdir(p)) for p in parts]
+    assert got[0] and got[1] and not set(got[0]) & set(got[1])
+    assert sorted(got[0] + got[1]) == sorted(os.listdir(one))
+    for p, names in zip(parts, got):
+        for n in names:
+            assert open(os.path.join(p, n)).read() == open(os.path.join(one, n)).read()
+
+
 def test_num_processes_without_a_coordinator_runs_as_one_process(world, tmp_path):
     """As in the JAX CLI: without ``--coordinator`` there is no group, and
     the one process runs every read."""
@@ -104,11 +125,13 @@ def test_more_devices_than_cards_raise_before_any_read(world, tmp_path, monkeypa
             cli.main([cmd, ref, d, "-o", str(tmp_path / out), "--device", "cuda",
                       "--devices", "3"])
         assert not os.path.exists(tmp_path / out)
-    # under a coordinator each process drives one device
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli.main(["snp", ref, d, "-o", str(tmp_path / "y.vcf"), "--device", "cpu",
-                  "--devices", "2", "--coordinator", "127.0.0.1:1",
+    # under a coordinator too, before the group is joined (nothing listens
+    # at the coordinator's address)
+    with pytest.raises(SystemExit, match="--devices 3"):
+        cli.main(["snp", ref, d, "-o", str(tmp_path / "y.vcf"), "--device", "cuda",
+                  "--devices", "3", "--coordinator", "127.0.0.1:1",
                   "--num-processes", "2", "--process-id", "0"])
+    assert not os.path.exists(tmp_path / "y.vcf")
 
 
 def test_two_device_checkpoint_resume(world, tmp_path, capsys):

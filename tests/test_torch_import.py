@@ -64,7 +64,9 @@ def test_no_jax_and_nothing_of_the_jax_package():
                 "nadavca_tpu_torch/convert.py", "chip_smoke.py",
                 "nadavca_tpu_torch/parallel/__init__.py",
                 "nadavca_tpu_torch/parallel/sharded.py",
-                "nadavca_tpu_torch/parallel/distributed.py"):
+                "nadavca_tpu_torch/parallel/distributed.py",
+                "nadavca_tpu_torch/ops/dp_spec.py",
+                "nadavca_tpu_torch/ops/cpu_ref.py"):
         assert rel in checked, rel
 
 

@@ -179,4 +179,21 @@ def test_the_backend_rule(monkeypatch, device, ranks, cards, backend):
     assert dist.choose_backend(device, ranks) == backend
     for r in range(ranks):
         want = torch.device("cuda", r % cards) if device == "cuda" else torch.device("cpu")
-        assert dist.rank_device(device, r, ranks) == want
+        assert dist.rank_devices(device, r, ranks) == [want]
+
+
+@pytest.mark.parametrize("device, ranks, n_local, cards, backend", [
+    ("cpu", 2, 4, 0, "gloo"), ("cuda", 2, 2, 4, "nccl"), ("cuda", 2, 2, 3, "gloo"),
+    ("cuda", 2, 4, 4, "gloo"), ("cuda", 3, 2, 8, "nccl")])
+def test_the_backend_rule_with_several_devices_a_rank(monkeypatch, device, ranks,
+                                                       n_local, cards, backend):
+    """Position r·n + i of the group's mesh on cuda:((r·n + i) mod cards):
+    NCCL only when no two positions share a card."""
+    from nadavca_tpu_torch.parallel import distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert dist.choose_backend(device, ranks, n_local) == backend
+    for r in range(ranks):
+        want = [torch.device("cuda", (r * n_local + i) % cards) if device == "cuda"
+                else torch.device("cpu") for i in range(n_local)]
+        assert dist.rank_devices(device, r, ranks, n_local) == want

@@ -85,14 +85,24 @@ def test_crash_consistency(world, tmp_path):
     assert not os.path.exists(tmp_path / "b.vcf")
 
 
-def test_joint_pass_over_two_ranks(world, tmp_path):
-    """``snp_joint_rescore``: each rank re-ingests and scores its own
-    shard's covering reads, and the per-read matrices are gathered."""
+def _joint_over_two_ranks(world, tmp_path, devices):
     argv, _ = world
     cfg = str(tmp_path / "joint.yaml")
     AlignConfig(snp_joint_rescore=True).to_yaml(cfg)
-    argv = argv + ["--configuration", cfg]
+    argv = argv + ["--configuration", cfg, "--devices", devices]
     one, mh = str(tmp_path / "one.vcf"), str(tmp_path / "mh.vcf")
     rcs, errs = run_ranks(argv + ["-o", mh], 2, one=one)
     assert rcs == [0, 0, 0], errs
     assert open(mh).read() == open(one).read() and len(body(one)) >= 2
+
+
+def test_joint_pass_over_two_ranks(world, tmp_path):
+    """``snp_joint_rescore``: each rank re-ingests and scores its own
+    shard's covering reads, and the per-read matrices are gathered."""
+    _joint_over_two_ranks(world, tmp_path, "1")
+
+
+def test_joint_pass_over_two_ranks_of_two_devices(world, tmp_path):
+    """The same with two devices a rank (against one process on two): the
+    pass runs on each rank's first device, one all_gather a process."""
+    _joint_over_two_ranks(world, tmp_path, "2")

@@ -33,7 +33,11 @@ each. Before the command line: the single-core C++ core (``ops/cpu_ref``) on
 16 reads of the main world, ms per read on one host core and its paths
 against the card's, and one batch of reads above 65,536 samples (T =
 131,072, B = 256) through ``api.call_snps``, held against the ``scan`` twin
-on the card. Then several devices and processes on the one card
+on the card. Then the JAX package's own test worlds (``reference_worlds``:
+an N run in the reference, a one-read batch, a window narrower than the
+band, 5 % indel basecalls, and the accuracy sweep's three quick-grid cells)
+through the kernels with genome tables, each against the ``scan`` twin on
+the card by the run rule of ``nadavca_tpu_torch/utils/parity.py``. Then several devices and processes on the one card
 (``multi_device``): ``parallel.sharded`` on the mesh ``[cuda:0, cuda:0]`` in
 its three layouts against one device, in one process and in two spawned
 gloo ranks of that mesh each (the seconds and the bytes handed to gloo per
@@ -77,7 +81,9 @@ from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
 from nadavca_tpu_torch.ops import banded_dp, cuda_dp, cuda_rescore
 from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
 from nadavca_tpu_torch.parallel import sharded
-from nadavca_tpu_torch.utils import kernel_build
+from nadavca_tpu_torch.utils import kernel_build, parity
+from nadavca_tpu_torch.utils.parity import (CPU_REF_TIE_SHARE, LONG_TIE_SHARE,
+                                            hold_against_scan, tie_only_differences)
 from nadavca_tpu_torch.utils.checkpoint import load_checkpoint
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the
@@ -722,84 +728,6 @@ def check_argmax_tie() -> None:
     assert score.tolist()[:3] == [1.5, 2.0, 0.25]
 
 
-def tie_only_differences(tag, path_a, path_b, live, mu, sigma,
-                         max_share: float = 1e-4) -> int:
-    """Number of live samples on which two paths differ, after checking that
-    every such difference is a broken tie.
-
-    The kernels renormalise once per chunk and the scan twin once per step, so
-    their float32 values round differently. Adjacent window positions that
-    hold the same k-mer (a homopolymer run) have identical levels, which makes
-    "stay" and "move" score EQUALLY in exact arithmetic: which of the two
-    positions gets a sample is then decided by the last bit. Both paths are
-    optimal. Any other difference fails.
-    """
-    diff = (path_a != path_b) & live
-    n = int(diff.sum())
-    if n == 0:
-        return 0
-    r, t = torch.nonzero(diff, as_tuple=True)
-    pa, pb = path_a[r, t].long(), path_b[r, t].long()
-    same_level = (mu[r, pa] == mu[r, pb]) & (sigma[r, pa] == sigma[r, pb])
-    near = (pa - pb).abs() <= 2
-    assert bool((same_level & near).all()), (
-        f"{tag}: {int((~(same_level & near)).sum())} of {n} differing path "
-        "entries are not ties between positions with identical levels")
-    assert n <= max_share * int(live.sum()), (tag, n, int(live.sum()))
-    return n
-
-
-def hold_against_scan(tag, batch, a, path, cnt, base_ll, model, cfg, ll_atol,
-                      tie_share: float = 1e-4) -> dict:
-    """The ``scan`` twin on the card against the kernels on one staged batch:
-    its Viterbi differs from the kernels' on broken ties only, and its local
-    rescore of the kernels' path agrees with the kernels' rescore (genome
-    tables) on interior positions, within ``ll_atol`` (the table path masks
-    read-local edges to exactly 0, by design, and the span rule positions
-    whose window starts 2048 samples or more past their tile's slab base).
-    At most ``tie_share`` of the live samples may differ, each by a tie.
-    Returns the counts, and the compared positions' mask as ``cmp``."""
-    n, T = batch.n_reads, batch.x.shape[1]
-    L, k = batch.codes.shape[1], cfg.k
-    scan = pipeline.align_batch(batch, model, dataclasses.replace(cfg, snp_rescore="fixed"),
-                                backend="scan", device="cuda")
-    live = torch.arange(T, device="cuda")[None, :] < a["t_len"][:, None]
-    live[n:] = False
-    n_tie = tie_only_differences(tag, path, scan["path"], live, a["mu"], a["sigma"],
-                                 max_share=tie_share)
-    del scan
-    twin_ll = banded_dp.base_loglik_local_batch(
-        a["x"], path, a["t_len"], a["codes"], a["ids"], a["lm"], a["ls"], k, cfg,
-        t_w=cfg.snp_local_window)
-    first_pos = path[:, 0].long()
-    last_pos = torch.gather(path, 1, (a["t_len"].long() - 1).clamp(min=0)[:, None])[:, 0].long()
-    wlen = torch.from_numpy(batch.window_len.astype(np.int64)).to("cuda")
-    i_idx = torch.arange(L, device="cuda")[None, :]
-    interior = ((i_idx >= (first_pos + k)[:, None])
-                & (i_idx < (torch.minimum(wlen, last_pos) - k)[:, None]))
-    interior[n:] = False
-    # positions the span rule masks are 0 on the kernel side only
-    S, _, _, _, _ = cuda_rescore.local_windows(path, a["t_len"], a["codes"],
-                                               batch.ids.shape[1], k,
-                                               cfg.snp_local_window, cnt)
-    S_c = S.clamp(0, T - 1)
-    span_ok = (cuda_rescore.span_ok(S_c, T) if T >= cuda_rescore.SPAN + 256
-               else torch.ones_like(interior))
-    cmp = interior & span_ok
-    assert int(cmp.sum()) > 0.8 * int(wlen[:n].sum()), (tag, int(cmp.sum()),
-                                                         int(wlen[:n].sum()))
-    # table constants are made with numpy's log on the host, the twin's with
-    # torch.log on the card: last-bit differences summed over <= 192 steps
-    torch.testing.assert_close(base_ll[cmp], twin_ll[cmp], rtol=1e-5, atol=ll_atol)
-    edge = ~interior & (i_idx < first_pos[:, None] + k - 1)
-    assert bool((base_ll[edge] == 0).all()), f"{tag}: read-local edges must be exactly 0"
-    return {"tie_differences": n_tie, "live_samples": int(live.sum()),
-            "interior_positions": int(cmp.sum()),
-            "span_masked_interior_positions": int((interior & ~span_ok).sum()),
-            "ll_max_abs_diff": float((base_ll[cmp] - twin_ll[cmp]).abs().max()),
-            "cmp": cmp}
-
-
 # -------------------------------------------------------- phase 4: main path
 def run_api(reference, raws, fast5_dir, cfg, model, device, batch_reads):
     """call_snps and align_signal through the public entry points: from fast5
@@ -1171,12 +1099,6 @@ CPU_REF_READS = 16
 # Queue 3 item 5 of the roadmap: reads above the last bucket edge (65,536
 # samples), so that the batch pads to 131,072, at the long band
 LONG_READS, LONG_BASES = 8, 8000
-# the largest share of live samples on which a path may differ by a broken
-# tie: the C++ core against the card (readings in cpu_ref_phase), and the
-# long batch against the scan twin (77 of 640,564, 1.2e-4, on the card); the
-# long batch's reads are 8, so a few runs of ties weigh more than over the
-# main path's 256 reads (limit 1e-4)
-CPU_REF_TIE_SHARE, LONG_TIE_SHARE = 2e-3, 3e-4
 
 
 def cpu_ref_phase(records, model, cfg) -> dict:
@@ -1271,8 +1193,7 @@ def long_read_phase(seed, model, small=False) -> dict:
         window_off_range=a["woff_range"])
     t0 = time.perf_counter()
     twin = hold_against_scan("long reads against the scan twin", batch, a, res.path,
-                             res.counts, base_ll, model, cfg, ll_atol=2e-3,
-                             tie_share=LONG_TIE_SHARE)
+                             base_ll, model, cfg, ll_atol=2e-3, tie_share=LONG_TIE_SHARE)
     twin.pop("cmp")
     return {"phase": "long_reads", "reads": LONG_READS, "bases": n_bases,
             "samples": [len(r.signal) for r in records],
@@ -1282,6 +1203,80 @@ def long_read_phase(seed, model, small=False) -> dict:
             "peak_device_mb_call": peak_mb, "decision_word_bytes": dec_bytes,
             "decision_word_bytes_rule": "R*T*B/8 per plane",
             "scan_twin": twin, "scan_twin_seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------ the JAX package's own test worlds
+# the most live samples on which the kernels' path may differ from the scan
+# twin's by a tie in each cell of the accuracy sweep's quick grid (seed 7):
+# the readings of the plain versions on the CPU (10, 10 and 42) with headroom
+QUICK_CELL_TIES = (20, 20, 60)
+
+
+def load_sweep():
+    """``scripts/torch_accuracy_sweep.py`` as a module (its worlds and
+    cells)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_accuracy_sweep.py")
+    spec = importlib.util.spec_from_file_location("torch_accuracy_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["torch_accuracy_sweep"] = mod     # its dataclass resolves here
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_worlds_phase(small=False) -> dict:
+    """Worlds 1, 2, 3 and 5 of the JAX package's own tests
+    (``utils/worlds.py``: an N run in the reference, a one-read batch padded
+    to its tile, a window narrower than the band, 5 % indel basecalls) and the
+    three cells of the accuracy sweep's quick grid (seed 7), each through the
+    kernels with genome tables as ``api.call_snps`` runs them and held
+    against the ``scan`` twin on the card (``parity.kernels_against_scan``):
+    paths by the run rule within each world's limit, rescores within 2e-3
+    where no tie moved a window (the positions a tie moved are counted),
+    calls equal outside the tables' masks. ``small``: the first cell only."""
+    from nadavca_tpu_torch.utils import worlds
+
+    sweep = load_sweep()
+    todo = [(name, build, limit) for name, (build, limit) in worlds.CARD_WORLDS.items()]
+    cells = sweep.QUICK_GRID[:1] if small else sweep.QUICK_GRID
+    for i, cell in enumerate(cells):
+        todo.append((f"quick_cell_{i}", cell, QUICK_CELL_TIES[i]))
+    out, n_batches = {}, 0
+    t_phase = time.perf_counter()
+    reset_launches()
+    for name, build, limit in todo:
+        t0 = time.perf_counter()
+        if name.startswith("quick_cell"):
+            model, ref, _, _, recs = sweep.prepare(build, 7)
+            cfg = nt.AlignConfig()
+            batches = [pipeline.assemble_batch(recs[j:j + sweep.BATCH_READS], model, cfg)
+                       for j in range(0, len(recs), sweep.BATCH_READS)]
+            w = dict(model=model, genome=ref, codes=ref["ref"].codes, cfg=cfg,
+                     batches=batches, min_coverage=sweep.MIN_COV, votes=True)
+        else:
+            w = build()
+        t1 = time.perf_counter()
+        got = parity.kernels_against_scan(
+            name, w["batches"], w["model"], w["cfg"], w["genome"], "cuda", limit,
+            codes=w["codes"], min_coverage=w["min_coverage"], votes=w["votes"])
+        sync()
+        n_batches += len(w["batches"])
+        out[name] = {"reads": sum(b.n_reads for b in w["batches"]),
+                     "live_samples": sum(int(b.t_len[:b.n_reads].sum()) for b in w["batches"]),
+                     "batch_shapes": [list(b.x.shape) for b in w["batches"]],
+                     "tie_differences": got["tie_differences"],
+                     "tie_limit": limit if isinstance(limit, int) else "samples in the N run",
+                     "excluded_positions": got["excluded_positions"],
+                     "compared_positions": got["compared_positions"],
+                     "ll_max_abs_diff": got["ll_max_abs_diff"], "calls": len(got["calls"]),
+                     "world_seconds": t1 - t0, "seconds": time.perf_counter() - t1}
+        del got          # the kernels' outputs of the world, on the card
+    launches = read_launches()
+    expect_launches("reference worlds", launches, {k: n_batches for k in LOCAL_KERNELS})
+    return {"phase": "reference_worlds", "worlds": out, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
 
 
 # --------------------------------------------------- phase 6: the command line
@@ -2124,7 +2119,7 @@ def main() -> int:
         assert d.size == 0 or (d.min() >= 0 and d.max() <= 1), (r, d.min(), d.max())
 
     # (b) the scan twin on the card
-    twin = hold_against_scan("scan twin on the card", batch, a, path, cnt, base_ll,
+    twin = hold_against_scan("scan twin on the card", batch, a, path, base_ll,
                              model, cfg, ll_atol=1e-3)
     cmp = twin.pop("cmp")
 
@@ -2201,6 +2196,8 @@ def main() -> int:
     # ---- the C++ core against the card, and a batch of long reads
     emit(cpu_ref_phase(records, model, cfg))
     emit(long_read_phase(args.seed, model, small))
+    # ---- the JAX package's own test worlds, against the scan twin
+    emit(reference_worlds_phase(small))
     # ---- phase 6: the command line, as users run it
     emit(cli_phase(args.seed, model, reference, raws, records, calls, truth,
                    batch_reads))

@@ -26,7 +26,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..config import AlignConfig
@@ -167,27 +166,6 @@ def banded_viterbi_batch(
         path[:, t - 1] = lo[:, t - 1] + j
     return ViterbiResult(score=score, path=path.to(torch.int32),
                          final_j=j_end.to(torch.int32))
-
-
-def make_band_batch(
-    anchors: np.ndarray, t_len: np.ndarray, n_ref: np.ndarray, band_width: int
-) -> np.ndarray:
-    """Vectorized numpy band construction for a padded batch.
-
-    anchors (R, T) float: approximate k-mer position per sample (padding
-    repeated). Matches dp_spec.make_band per row; padding rows repeat the last
-    valid lo so padded scan steps are identity.
-    """
-    R, T = anchors.shape
-    B = band_width
-    lo = np.round(anchors).astype(np.int64) - B // 2
-    hi_clip = np.maximum(n_ref - B, 0)[:, None]
-    lo = np.clip(lo, 0, hi_clip)
-    lo = np.maximum.accumulate(lo, axis=1)
-    # freeze lo beyond each read's end at its final valid value
-    idx = np.minimum(np.arange(T)[None, :], np.maximum(t_len - 1, 0)[:, None])
-    lo = np.take_along_axis(lo, idx, axis=1)
-    return lo.astype(np.int32)
 
 
 def segment_stats_batch(

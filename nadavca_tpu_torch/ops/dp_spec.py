@@ -3,7 +3,9 @@
 Counterpart of ``nadavca_tpu/ops/dp_spec.py``, copied function for function
 (same names, same arithmetic), so that the port's tests reach an oracle
 without importing the JAX package and a comparison of the two copies is
-exact. It implements, slowly and exactly:
+exact; ``make_band_batch``, the batched band of the JAX package's
+``ops/banded_dp.py``, lives here beside ``make_band`` because it is numpy
+too. It implements, slowly and exactly:
 
   * band construction from an anchor path,
   * banded Viterbi over (signal sample t × reference k-mer position i) with
@@ -59,6 +61,28 @@ def make_band(anchor: np.ndarray, n_ref: int, band_width: int) -> np.ndarray:
     lo = np.clip(lo, 0, n_ref - B)
     lo = np.maximum.accumulate(lo)
     return lo
+
+
+def make_band_batch(
+    anchors: np.ndarray, t_len: np.ndarray, n_ref: np.ndarray, band_width: int
+) -> np.ndarray:
+    """Vectorized numpy band construction for a padded batch: the
+    per-sample band of the ``scan`` twin.
+
+    anchors (R, T) float: approximate k-mer position per sample (padding
+    repeated). Matches :func:`make_band` per row; padding rows repeat the last
+    valid lo so padded scan steps are identity.
+    """
+    R, T = anchors.shape
+    B = band_width
+    lo = np.round(anchors).astype(np.int64) - B // 2
+    hi_clip = np.maximum(n_ref - B, 0)[:, None]
+    lo = np.clip(lo, 0, hi_clip)
+    lo = np.maximum.accumulate(lo, axis=1)
+    # freeze lo beyond each read's end at its final valid value
+    idx = np.minimum(np.arange(T)[None, :], np.maximum(t_len - 1, 0)[:, None])
+    lo = np.take_along_axis(lo, idx, axis=1)
+    return lo.astype(np.int32)
 
 
 def banded_viterbi(

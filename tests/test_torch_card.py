@@ -501,24 +501,11 @@ def test_sharded_step_on_one_card_twice_equals_one_device(card):
         np.testing.assert_allclose(got[0], one[0], rtol=1e-4, atol=1e-2)
 
 
-def _chip_smoke():
-    """``chip_smoke.py`` at the root of the repo, as a module: the card tests
-    share its comparison with the scan twin."""
-    import importlib.util
-    from pathlib import Path
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_long_reads_above_the_last_bucket_edge(card):
     """8 reads of 8,000 bases (above 65,536 samples each, so the batch pads
     to 131,072) at the long band of 256 through ``api.call_snps``; the same
-    batch against the ``scan`` twin on the card (``chip_smoke``'s
-    ``hold_against_scan``): paths equal but for ties between identical
+    batch against the ``scan`` twin on the card (``parity.hold_against_scan``,
+    as ``chip_smoke.py`` holds it): paths equal but for ties between identical
     levels, the twin's local rescore of the kernels' path within 2e-3 of the
     kernels' on interior positions the span rule keeps."""
     import nadavca_tpu_torch as nt
@@ -527,7 +514,8 @@ def test_long_reads_above_the_last_bucket_edge(card):
     from nadavca_tpu_torch.ops import cuda_rescore
     from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
 
-    smoke = _chip_smoke()
+    from nadavca_tpu_torch.utils import parity
+
     rng = np.random.default_rng(12)
     model = nt.default_model()
     cfg = AlignConfig(band_width=256)
@@ -553,6 +541,118 @@ def test_long_reads_above_the_last_bucket_edge(card):
         a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"], a["delta"], cfg,
         count_lanes=cuda_rescore.count_lanes(batch.ids.shape[1]))
     assert torch.equal(res.path, out["path"])
-    smoke.hold_against_scan("long reads", batch, a, out["path"], res.counts,
-                            out["base_loglik"], model, cfg, ll_atol=2e-3,
-                            tie_share=smoke.LONG_TIE_SHARE)
+    parity.hold_against_scan("long reads", batch, a, out["path"], out["base_loglik"],
+                             model, cfg, ll_atol=2e-3, tie_share=parity.LONG_TIE_SHARE)
+
+
+def _rescore_launches():
+    from nadavca_tpu_torch.ops import cuda_rescore
+
+    return {k.__name__: k.launches for k in cuda_rescore.KERNELS}
+
+
+def _hold_plain(tag, batches, runs, model, cfg, genome, limit):
+    """The kernels' outputs on the card against their plain versions on the
+    CPU, batch for batch: paths by the run rule (``logf`` on the card, ``log``
+    on the CPU, may break a tie either way), rescores within 1e-3 wherever no
+    tie moved a window. Returns the plain versions' rescores."""
+    from nadavca_tpu_torch import pipeline
+    from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
+    from nadavca_tpu_torch.utils import parity
+
+    tables = build_subst_tables(genome, model, device="cpu")
+    lls = []
+    for batch, kern in zip(batches, runs):
+        plain = pipeline.align_batch(batch, model, cfg, backend="cuda", device="cpu",
+                                     subst=tables)
+        path = kern["path"].cpu()
+        lim = limit(batch, path, plain["path"]) if callable(limit) else limit
+        parity.hold_runs(tag, path, kern["base_loglik"].cpu(), plain["path"],
+                         plain["base_loglik"], batch.t_len, batch.mu, batch.sigma, model.k,
+                         lim, n_reads=batch.n_reads, ll_atol=1e-3)
+        lls.append(plain["base_loglik"])
+    return lls
+
+
+@pytest.mark.parametrize("name", ["n_run", "one_read", "narrow_window", "indel_calls"])
+def test_reference_world_on_the_card(card, name):
+    """Worlds 1, 2, 3 and 5 of the JAX package's own tests
+    (``nadavca_tpu_torch.utils.worlds``: an N run in the reference, a
+    one-read batch padded to its tile, a window narrower than the band, 5 %
+    indel basecalls) through the kernels with genome tables on the card, as
+    ``api.call_snps`` runs them. Against the ``scan`` twin on the card: paths
+    by the run rule, rescores within 2e-3 where no tie moved a window, calls
+    equal outside the tables' masks. Against the kernels' plain versions on
+    the CPU: paths by the run rule, rescores within 1e-3, the same calls."""
+    from nadavca_tpu_torch.utils import parity, worlds
+
+    build, limit = worlds.CARD_WORLDS[name]
+    w = build()
+    before, before_r = _launches(), _rescore_launches()
+    got = parity.kernels_against_scan(name, w["batches"], w["model"], w["cfg"], w["genome"],
+                                      "cuda", limit, codes=w["codes"],
+                                      min_coverage=w["min_coverage"], votes=w["votes"])
+    torch.cuda.synchronize()
+    n = len(w["batches"])
+    assert _launches()["viterbi_fill"] - before["viterbi_fill"] == n
+    assert _launches()["path_counts"] - before["path_counts"] == n
+    assert _rescore_launches()["rescore_local_tab"] - before_r["rescore_local_tab"] == n
+    lls = _hold_plain(f"{name}: card against the plain versions", w["batches"], got["runs"],
+                      w["model"], w["cfg"], w["genome"], limit)
+    plain_calls = parity.calls_of(w["batches"], lls, w["codes"], "ref", w["cfg"],
+                                  w["min_coverage"], w["votes"])
+    assert parity.call_keys(got["calls"]) == parity.call_keys(plain_calls)
+    if name == "n_run":
+        lo, hi = worlds.N_RUN
+        assert not any(lo <= c.position < hi for c in got["calls"])
+    if name == "indel_calls":
+        called = {c.position: c.alt_base for c in got["calls"]}
+        assert all(called.get(p) == "ACGT"[b] for p, b in w["truth"].items()), called
+
+
+# world 9 on the card: the kernels' path may differ from the scan twin's on
+# at most this many live samples, each a tie (45 of 120,731 with the plain
+# versions on the CPU)
+CONTIG_TIES = 70
+
+
+def test_three_contig_world_on_the_card(card, tmp_path):
+    """World 9 (``worlds.three_contigs``: three contigs, reads of every
+    contig on both strands, batches that mix them). ``cli snp`` on the card
+    gives the calls of the same command on the CPU, where the plain versions
+    run (the card adds with atomics: posteriors within 2e-6); the batches of
+    eight mixed reads through the kernels with tables against the ``scan``
+    twin on the card and against the plain versions on the CPU, by the run
+    rule."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import api, cli, pipeline
+    from nadavca_tpu_torch.utils import parity, worlds
+
+    _, reference, reads = worlds.three_contigs()
+    raws = [api.raw_read_from_simulated(r) for r in reads]
+    ref = str(tmp_path / "reference.fasta")
+    reference.to_fasta(ref)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.vcf")
+        before = _launches()["viterbi_fill"]
+        assert cli.main(["snp", ref, "(in memory)", "-o", out, "--backend", "cuda",
+                         "--device", device, "--batch-reads", "8", "--min-coverage", "2"],
+                        reads=raws) == 0
+        assert (_launches()["viterbi_fill"] > before) == (device == "cuda")
+        rows[device] = [l.rstrip("\n").split("\t") for l in open(out) if not l.startswith("#")]
+    key = lambda r: r[:5] + [r[7].split(";")[0]]
+    assert [key(r) for r in rows["cuda"]] == [key(r) for r in rows["cpu"]]
+    np.testing.assert_allclose([float(r[7].split("PP=")[1]) for r in rows["cuda"]],
+                               [float(r[7].split("PP=")[1]) for r in rows["cpu"]], atol=2e-6)
+    assert {r[0] for r in rows["cuda"]} == set(worlds.CONTIGS)
+
+    model, cfg = nt.default_model(), AlignConfig()
+    records = api._preprocess(raws, reference, model, cfg, prep="python")
+    batches = [pipeline.assemble_batch(records[i:i + 8], model, cfg)
+               for i in range(0, len(records), 8)]
+    assert all(len(set(b.contigs[:b.n_reads])) == 3 for b in batches)
+    got = parity.kernels_against_scan("three contigs", batches, model, cfg, reference,
+                                      "cuda", CONTIG_TIES)
+    _hold_plain("three contigs: card against the plain versions", batches, got["runs"],
+                model, cfg, reference, CONTIG_TIES)

@@ -211,7 +211,7 @@ def test_make_band_batch_equals_the_oracles_band_per_row(sim):
         t = len(rd.signal)
         anchors[r, :t] = rd.true_path
         anchors[r, t:] = rd.true_path[-1]
-    lo = banded_dp.make_band_batch(anchors, a["t_len"], a["n_ref"], 128)
+    lo = dp_spec.make_band_batch(anchors, a["t_len"], a["n_ref"], 128)
     assert lo.dtype == np.int32 and lo.shape == a["x"].shape
     for r, rd in enumerate(reads):
         t = len(rd.signal)

@@ -23,6 +23,9 @@ def _python_sources():
             if fn.endswith(".py"):
                 yield os.path.join(root, fn)
     yield os.path.join(REPO, "chip_smoke.py")
+    for fn in sorted(os.listdir(os.path.join(REPO, "scripts"))):
+        if fn.startswith("torch_") and fn.endswith(".py"):
+            yield os.path.join(REPO, "scripts", fn)
 
 
 def _imported_roots(path):
@@ -66,7 +69,10 @@ def test_no_jax_and_nothing_of_the_jax_package():
                 "nadavca_tpu_torch/parallel/sharded.py",
                 "nadavca_tpu_torch/parallel/distributed.py",
                 "nadavca_tpu_torch/ops/dp_spec.py",
-                "nadavca_tpu_torch/ops/cpu_ref.py"):
+                "nadavca_tpu_torch/ops/cpu_ref.py",
+                "nadavca_tpu_torch/utils/parity.py",
+                "nadavca_tpu_torch/utils/worlds.py",
+                "scripts/torch_accuracy_sweep.py"):
         assert rel in checked, rel
 
 

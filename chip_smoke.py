@@ -47,9 +47,7 @@ genome-sharded with deferred merges) in two ranks against one process. The earli
 with those of earlier runs. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit code is not
 0. Without a CUDA device it exits with code 2 and prints no result. ``--small``
-cuts every size (for a quick look, not for numbers), ``--profile`` adds a
-``torch.profiler`` trace of one ``call_snps`` run (device time by kernel, the
-card's idle share).
+cuts every size (for a quick look, not for numbers).
 """
 
 from __future__ import annotations
@@ -137,18 +135,6 @@ KERNEL_INFO = {
 FOLDED_INTO = {"band_gather": "viterbi_fill, viterbi_fill_skip, viterbi_fill_pair",
                "path_counts": "backtrack, backtrack_skip",
                "shear_gather": "rescore_local_tab, rescore_local"}
-# the __global__ function behind each wrapper, as the profiler names it (the
-# folded kernels run inside another's launch)
-DEVICE_FUNCTION = {
-    "band_gather": None, "viterbi_fill": "viterbi_fill_kernel<",
-    "backtrack": "backtrack_kernel<", "path_counts": None,
-    "viterbi_fill_skip": "viterbi_fill_skip_kernel<",
-    "viterbi_fill_pair": "viterbi_fill_pair_kernel<",
-    "backtrack_skip": "backtrack_skip_kernel<",
-    "shear_gather": None,
-    "rescore_local_tab": "rescore_local_tab_kernel<",
-    "rescore_local": "rescore_local_kernel<",
-}
 # every launch count: the kernels' and those of the three folded ones (the
 # band gather, the path counts, the shear gather)
 ALL_COUNTERS = cuda_dp.COUNTERS + cuda_rescore.KERNELS
@@ -809,37 +795,6 @@ def stage_split(records, reference, raws, model, cfg, batch_reads, tables):
                       reference.contigs[0].name, cfg, min_coverage=2, votes=votes_g)
     split["call"] = (time.perf_counter() - t0) * 1e3
     return batch, a, path, cnt, st["end"][1], st["ll"], split
-
-
-def profile_main_path(reference, raws, cfg, model, batch_reads,
-                      unprofiled_s: float) -> dict:
-    """Device time by kernel and the card's busy share over one
-    ``call_snps_reads`` on the card, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        api.call_snps_reads(reference, raws, config=cfg, model=model,
-                            backend="cuda", batch_reads=batch_reads,
-                            prep="python", device="cuda")
-        sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_time_total > 0
-            and e.device_type.name == "CUDA"]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    # tracing slows the host several times over, so the idle share is taken
-    # against the untraced run of the same call
-    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "untraced_wall_ms": unprofiled_s * 1e3,
-            "device_idle_share": 1.0 - busy_ms / (unprofiled_s * 1e3) if rows else None,
-            "port_kernels_device_ms_per_launch": {
-                name: next((ms / c for k, ms, c in rows if fn and fn in k), None)
-                for name, fn in DEVICE_FUNCTION.items()},
-            "top_device_ms": [{"name": k[:60], "ms": ms, "count": c}
-                              for k, ms, c in rows[:16]]}
 
 
 def path_of(aln, n_samples: int) -> np.ndarray:
@@ -1906,8 +1861,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace one call_snps run with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2204,9 +2157,6 @@ def main() -> int:
     # ---- phase 7: several devices and processes, on the one card
     emit(multi_device_phase(args.seed, model, reference, raws, records, batch_reads,
                             smi, small))
-    if args.profile:
-        emit({"phase": "profile", **profile_main_path(
-            reference, raws, cfg, model, batch_reads, snp_s)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # each kernel's count comes from the path that runs it: the skip kernels
     # from the skip path, the two-sample fill from its own, K6 from the path

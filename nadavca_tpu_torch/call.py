@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import AlignConfig
+from .utils.profiling import span
 
 # complement permutation of the base axis (A<->T, C<->G)
 _COMP = (3, 2, 1, 0)
@@ -90,20 +91,21 @@ def accumulate_batch(
     and out-of-genome positions land in an overflow row that is cut off again.
     On a CUDA device ``index_add_`` adds with atomics, so the float sums in
     ``acc`` can differ in their last bits from run to run; ``cov`` and
-    ``votes`` are integer sums and exact.
+    ``votes`` are integer sums and exact. Span ``nadavca.accumulate``.
     """
     G = acc.shape[0]
-    flat_pos, ll, n_valid, onehot = scatter_values(
-        base_ll, window_start, window_len, strand, G, cfg)
-    acc_pad = torch.cat([acc, acc.new_zeros((1, 4))], dim=0)
-    acc_pad.index_add_(0, flat_pos, ll.to(acc.dtype))
-    cov_pad = torch.cat([cov, cov.new_zeros((1,))], dim=0)
-    cov_pad.index_add_(0, flat_pos, n_valid.to(cov.dtype))
-    if votes is None:
-        return acc_pad[:G], cov_pad[:G]
-    votes_pad = torch.cat([votes, votes.new_zeros((1, 4))], dim=0)
-    votes_pad.index_add_(0, flat_pos, onehot.to(votes.dtype))
-    return acc_pad[:G], cov_pad[:G], votes_pad[:G]
+    with span("nadavca.accumulate"):
+        flat_pos, ll, n_valid, onehot = scatter_values(
+            base_ll, window_start, window_len, strand, G, cfg)
+        acc_pad = torch.cat([acc, acc.new_zeros((1, 4))], dim=0)
+        acc_pad.index_add_(0, flat_pos, ll.to(acc.dtype))
+        cov_pad = torch.cat([cov, cov.new_zeros((1,))], dim=0)
+        cov_pad.index_add_(0, flat_pos, n_valid.to(cov.dtype))
+        if votes is None:
+            return acc_pad[:G], cov_pad[:G]
+        votes_pad = torch.cat([votes, votes.new_zeros((1, 4))], dim=0)
+        votes_pad.index_add_(0, flat_pos, onehot.to(votes.dtype))
+        return acc_pad[:G], cov_pad[:G], votes_pad[:G]
 
 
 def accumulate_batch_(
@@ -120,12 +122,13 @@ def accumulate_batch_(
     G-sized temporary. The overflow row's entries are zeros (``scatter_values``
     masks them), so they are added to row 0, which leaves it as it was."""
     G = acc.shape[0]
-    flat_pos, ll, n_valid, onehot = scatter_values(
-        base_ll, window_start, window_len, strand, G, cfg)
-    flat_pos = torch.where(flat_pos < G, flat_pos, torch.zeros_like(flat_pos))
-    acc.index_add_(0, flat_pos, ll.to(acc.dtype))
-    cov.index_add_(0, flat_pos, n_valid.to(cov.dtype))
-    votes.index_add_(0, flat_pos, onehot.to(votes.dtype))
+    with span("nadavca.accumulate"):
+        flat_pos, ll, n_valid, onehot = scatter_values(
+            base_ll, window_start, window_len, strand, G, cfg)
+        flat_pos = torch.where(flat_pos < G, flat_pos, torch.zeros_like(flat_pos))
+        acc.index_add_(0, flat_pos, ll.to(acc.dtype))
+        cov.index_add_(0, flat_pos, n_valid.to(cov.dtype))
+        votes.index_add_(0, flat_pos, onehot.to(votes.dtype))
 
 
 def make_accumulators(genome_len: int, with_votes: bool = False, device="cuda"):

@@ -10,6 +10,13 @@ batch into one genome accumulator on the devices, checkpoints it with the
 read manifest (``--checkpoint``), and resumes by skipping the merged reads
 before their signal is loaded.
 
+Each command reports through the process's registry
+(``utils.metrics.PROCESS``, reset at its start) one ``[metrics]`` line on
+stderr; ``padding_waste`` is the padding share over every batch of the job.
+``--profile DIR`` traces the whole command, every thread, with the spans
+``nadavca.tables``, ``.prep``, ``.prep_wait``, ``.drain``, ``.checkpoint``
+and ``.calls`` of this module around those of the step (``README.md``).
+
 Several devices and processes (``parallel/``), as in the JAX package:
 
 - ``--devices N`` splits each batch's rows over N devices of this process
@@ -72,7 +79,8 @@ from .pipeline import (_bucket, _round_up, assemble_batch, check_supported,
 from .parallel import distributed as dist
 from .parallel import sharded
 from .utils.checkpoint import load_checkpoint, save_checkpoint
-from .utils.metrics import Metrics
+from .utils.metrics import PROCESS as METRICS, Metrics
+from .utils.profiling import span
 
 # the environment variable of the crash points of the checkpoint protocol
 CRASH_POINT_ENV = "NADAVCA_TPU_CRASH_POINT"
@@ -185,7 +193,8 @@ def _prefetched(groups, prepare, depth=2):
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with span("nadavca.prep_wait"):
+            item = q.get()
         if item is sentinel:
             if failed:
                 raise failed[0]
@@ -305,10 +314,21 @@ def _stream_records(args, cfg, genome, metrics, model=None,
         metrics.count("reads_skipped", n_in - n_ok)
 
 
-def _padding_waste(batch) -> float:
-    """Share of the signal axis that is padding, over the true reads."""
-    n_true = max(batch.n_reads, 1)
-    return 1.0 - (float(batch.t_len[:n_true].sum()) / (n_true * batch.x.shape[1]))
+def _count_padding(metrics: Metrics, batch) -> None:
+    """Count a batch's true reads' signal samples and the samples they take
+    padded to the batch's length."""
+    n = batch.n_reads
+    metrics.count("signal_samples_true", int(batch.t_len[:n].sum()))
+    metrics.count("signal_samples_padded", n * batch.x.shape[1])
+
+
+def _padding_waste(metrics: Metrics) -> None:
+    """Gauge ``padding_waste``: the share of the signal axis that is padding,
+    over the true reads of every batch the job ran (none before a batch)."""
+    c = metrics.counters
+    if c.get("signal_samples_padded"):
+        metrics.gauge("padding_waste",
+                      1.0 - c["signal_samples_true"] / c["signal_samples_padded"])
 
 
 def _final_calls(args, cfg, model, genome, contig_off, a_np, c_np, v_np,
@@ -426,7 +446,8 @@ def cmd_align(args) -> int:
     shard = _shard_of(args)
     model = _load_model(args, cfg)
     genome = Genome.from_fasta(args.reference)
-    metrics = Metrics()
+    metrics = METRICS
+    metrics.reset()
     os.makedirs(args.output, exist_ok=True)
     t0 = time.time()  # end-to-end clock: ingest runs INSIDE the loop below
     records = _stream_records(args, cfg, genome, metrics, model=model,
@@ -435,18 +456,20 @@ def cmd_align(args) -> int:
     align_steps = {}
 
     def _prep(group):
-        gcfg = _cfg_for_group(cfg, group)
-        batch = assemble_batch(group, model, gcfg,
-                               pad_reads_to=_shard_rows(gcfg, mesh, len(group)))
-        return group, gcfg, batch, sharded.shard_batch(mesh, batch, model, gcfg,
-                                                       args.backend)
+        with span("nadavca.prep"):
+            gcfg = _cfg_for_group(cfg, group)
+            batch = assemble_batch(group, model, gcfg,
+                                   pad_reads_to=_shard_rows(gcfg, mesh, len(group)))
+            return group, gcfg, batch, sharded.shard_batch(mesh, batch, model, gcfg,
+                                                           args.backend)
 
     pending = collections.deque()
 
     def _drain_one():
         nonlocal n_done
         group, batch, out = pending.popleft()
-        paths = out["path"].cpu().numpy()  # device fetch (true sync)
+        with span("nadavca.drain"):
+            paths = out["path"].cpu().numpy()  # device fetch (true sync)
         for r in range(batch.n_reads):
             t = int(batch.t_len[r])
             n = int(batch.n_ref[r])
@@ -464,7 +487,7 @@ def cmd_align(args) -> int:
     # work of batch N+1 (already launched)
     for group, gcfg, batch, blocks in _prefetched(
             _stream_groups(records, args.batch_reads, cfg), _prep):
-        metrics.gauge("padding_waste", _padding_waste(batch))
+        _count_padding(metrics, batch)
         metrics.count(f"batches_band_{gcfg.band_width}")
         if gcfg not in align_steps:
             align_steps[gcfg] = sharded.make_sharded_align(mesh, gcfg)
@@ -476,6 +499,7 @@ def cmd_align(args) -> int:
     dt = time.time() - t0
     # ingest→outputs wall including every host stage
     metrics.gauge("reads_per_s_e2e", n_done / dt if dt > 0 else 0.0)
+    _padding_waste(metrics)
     metrics.report(sys.stderr)
     print(f"aligned {n_done} reads -> {args.output}", file=sys.stderr)
     return 0
@@ -612,7 +636,8 @@ def _run_snp_multihost(args, cfg, model, tables, mesh, records, contig_off, Gp,
                 mesh, gcfg, Gp, genome_sharded=genome_sharded, with_path=False,
                 merge_deferred=merge_deferred)
         score, *state = steps[gcfg](blocks, *state)
-        score.cpu()  # local pacing sync
+        with span("nadavca.drain"):
+            score.cpu()  # local pacing sync
         n_done += batch.n_reads
         done_ids.update(batch.read_ids[:batch.n_reads])
         if metas_by_contig is not None:
@@ -624,6 +649,7 @@ def _run_snp_multihost(args, cfg, model, tables, mesh, records, contig_off, Gp,
                                    int(batch.strand[r])))
         metrics.count("reads_called", batch.n_reads)
         metrics.count(f"batches_band_{gcfg.band_width}")
+        _count_padding(metrics, batch)
         rounds += 1
         # the round counter advances in lockstep on every process (the agreed
         # key is a function of the gathered candidates), so the barrier
@@ -646,7 +672,8 @@ def cmd_snp(args) -> int:
     n_dev = mesh.size
     model = _load_model(args, cfg)
     genome = Genome.from_fasta(args.reference)
-    metrics = Metrics()
+    metrics = METRICS
+    metrics.reset()
 
     # ONE accumulator over the concatenated genome: all contigs live in one
     # (G, 4) array, so a batch spanning contigs is a single device step, and
@@ -732,8 +759,9 @@ def cmd_snp(args) -> int:
 
     def save_ckpt(merged):
         if args.checkpoint:
-            save_checkpoint(args.checkpoint, accs_by_contig(*merged), done_ids,
-                            read_metas=flat_metas())
+            with span("nadavca.checkpoint"):
+                save_checkpoint(args.checkpoint, accs_by_contig(*merged), done_ids,
+                                read_metas=flat_metas())
 
     def save_ckpt_of_group(state, n_batches):
         """Manifests first, then a barrier, then process 0 writes the merged
@@ -741,23 +769,26 @@ def cmd_snp(args) -> int:
         of that batch is on disk (a crash mid-save can lose a window's
         contributions, but a resume never counts a read twice)."""
         meta = {"n_batches": int(n_batches), "num_processes": int(nproc)}
-        if pid != 0:
-            save_checkpoint(_ckpt_shard_path(args.checkpoint, pid), {}, done_ids,
-                            meta=meta, read_metas=flat_metas())
-            _crash_point("post_manifest", pid, n_batches)
-        dist.sync_global_devices()
-        _crash_point("pre_acc", pid, n_batches)
-        # the deferred merge and the fetch of genome slices are collectives:
-        # every process joins them, though only process 0 writes
-        merged = merged_host(state)
-        if pid == 0:
-            save_checkpoint(args.checkpoint, accs_by_contig(*merged), done_ids,
-                            meta=meta, read_metas=flat_metas())
-        _crash_point("post_save", pid, n_batches)
+        with span("nadavca.checkpoint"):
+            if pid != 0:
+                save_checkpoint(_ckpt_shard_path(args.checkpoint, pid), {}, done_ids,
+                                meta=meta, read_metas=flat_metas())
+                _crash_point("post_manifest", pid, n_batches)
+            dist.sync_global_devices()
+            _crash_point("pre_acc", pid, n_batches)
+            # the deferred merge and the fetch of genome slices are
+            # collectives: every process joins them, though only process 0
+            # writes
+            merged = merged_host(state)
+            if pid == 0:
+                save_checkpoint(args.checkpoint, accs_by_contig(*merged), done_ids,
+                                meta=meta, read_metas=flat_metas())
+            _crash_point("post_save", pid, n_batches)
 
     t0 = time.time()
-    subst = api._maybe_subst(genome, model, cfg, args.backend, mesh.devices[0])
-    tables = sharded.replicate_tables(mesh, subst)
+    with span("nadavca.tables"):
+        subst = api._maybe_subst(genome, model, cfg, args.backend, mesh.devices[0])
+        tables = sharded.replicate_tables(mesh, subst)
     metrics.gauge("subst_build_s", time.time() - t0)
     t0 = time.time()
 
@@ -772,11 +803,13 @@ def cmd_snp(args) -> int:
         a_np, c_np, v_np = merged_host(state)
         # every process joins _final_calls (the joint pass gathers its
         # per-shard matrices); only process 0 writes the VCF
-        all_calls = _final_calls(args, cfg, model, genome, contig_off, a_np, c_np,
-                                 v_np, metas_by_contig, args.min_coverage, dev,
-                                 shard=(pid, nproc), multihost=True)
+        with span("nadavca.calls"):
+            all_calls = _final_calls(args, cfg, model, genome, contig_off, a_np,
+                                     c_np, v_np, metas_by_contig, args.min_coverage,
+                                     dev, shard=(pid, nproc), multihost=True)
         dt_e2e = time.time() - t_e2e
         metrics.gauge("reads_per_s_e2e", n_done / dt_e2e if dt_e2e > 0 else 0.0)
+        _padding_waste(metrics)
         _device_gauges(metrics, mesh)
         metrics.report(sys.stderr)
         if pid == 0:
@@ -789,13 +822,14 @@ def cmd_snp(args) -> int:
     n_batches = 0
 
     def _prep(group):
-        gcfg = _cfg_for_group(cfg, group)
-        batch = assemble_batch(group, model, gcfg,
-                               pad_reads_to=_shard_rows(gcfg, mesh, len(group)))
-        coffs = np.asarray([contig_off[c] for c in batch.contigs], np.int64)
-        return group, gcfg, batch, sharded.shard_batch(
-            mesh, batch, model, gcfg, args.backend, tables,
-            window_start=batch.window_start + coffs)
+        with span("nadavca.prep"):
+            gcfg = _cfg_for_group(cfg, group)
+            batch = assemble_batch(group, model, gcfg,
+                                   pad_reads_to=_shard_rows(gcfg, mesh, len(group)))
+            coffs = np.asarray([contig_off[c] for c in batch.contigs], np.int64)
+            return group, gcfg, batch, sharded.shard_batch(
+                mesh, batch, model, gcfg, args.backend, tables,
+                window_start=batch.window_start + coffs)
 
     steps = {}
     seen_shapes = set()
@@ -810,7 +844,7 @@ def cmd_snp(args) -> int:
     pending = collections.deque()
     for group, gcfg, batch, blocks in _prefetched(
             _stream_groups(records, args.batch_reads, cfg), _prep):
-        metrics.gauge("padding_waste", _padding_waste(batch))
+        _count_padding(metrics, batch)
         metrics.count(f"batches_band_{gcfg.band_width}")
         shape_key = (batch.shapes, gcfg.band_width)
         known = shape_key in seen_shapes
@@ -818,8 +852,9 @@ def cmd_snp(args) -> int:
             if span_t0 is not None:
                 steady_secs += time.time() - span_t0
                 span_t0 = None
-            while pending:
-                pending.popleft().cpu()
+            with span("nadavca.drain"):
+                while pending:
+                    pending.popleft().cpu()
         elif span_t0 is None:
             span_t0 = time.time()
         if gcfg not in steps:
@@ -828,13 +863,14 @@ def cmd_snp(args) -> int:
                 mesh, gcfg, Gp, genome_sharded=genome_sharded, with_path=False,
                 merge_deferred=merge_deferred)
         score, *state = steps[gcfg](blocks, *state)
-        if known:
-            pending.append(score)
-            while len(pending) > 2:
-                pending.popleft().cpu()
-            steady_reads += batch.n_reads
-        else:
-            score.cpu()
+        with span("nadavca.drain"):
+            if known:
+                pending.append(score)
+                while len(pending) > 2:
+                    pending.popleft().cpu()
+                steady_reads += batch.n_reads
+            else:
+                score.cpu()
         seen_shapes.add(shape_key)
         n_done += batch.n_reads
         n_batches += 1
@@ -849,14 +885,16 @@ def cmd_snp(args) -> int:
         metrics.count("reads_called", batch.n_reads)
         if args.checkpoint and n_batches % args.checkpoint_every == 0:
             save_ckpt(merged_host(state))
-    while pending:
-        pending.popleft().cpu()
+    with span("nadavca.drain"):
+        while pending:
+            pending.popleft().cpu()
     if span_t0 is not None:  # the final drain belongs to the open steady span
         steady_secs += time.time() - span_t0
     merged = merged_host(state)
     save_ckpt(merged)
-    all_calls = _final_calls(args, cfg, model, genome, contig_off, *merged,
-                             metas_by_contig, args.min_coverage, dev)
+    with span("nadavca.calls"):
+        all_calls = _final_calls(args, cfg, model, genome, contig_off, *merged,
+                                 metas_by_contig, args.min_coverage, dev)
     callmod.write_vcf(args.output, all_calls)
     dt = time.time() - t0
     metrics.gauge("reads_per_s", n_done / dt if dt > 0 else 0.0)
@@ -867,6 +905,7 @@ def cmd_snp(args) -> int:
     if steady_secs > 0:
         # throughput once each bucket shape has run once
         metrics.gauge("reads_per_s_steady", steady_reads / steady_secs)
+    _padding_waste(metrics)
     _device_gauges(metrics, mesh)
     metrics.report(sys.stderr)
     print(f"{len(all_calls)} SNP calls from {n_done} reads -> {args.output}",

@@ -44,6 +44,7 @@ import torch
 
 from ..config import AlignConfig
 from ..utils import kernel_build
+from ..utils.profiling import span
 from .banded_dp import NEG_INF, ViterbiResult
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -652,15 +653,19 @@ def cuda_viterbi_batch(x, t_len, mu, sigma, n_ref, lo, delta, cfg: AlignConfig,
     bands (lo, delta (R, n_chunks) from ``sched.build_chunked_bands``).
     Returns (ViterbiResult, decs) with ``decs`` the tuple of decision planes.
     With ``count_lanes`` the walk also emits the path's segment counts over
-    that many lanes into ``ViterbiResult.counts``.
+    that many lanes into ``ViterbiResult.counts``. Spans: ``nadavca.fill``,
+    ``nadavca.final_slot``, ``nadavca.walk``.
     """
-    decs, v_fin, acc = viterbi_fill(x, t_len, mu, sigma, lo, delta, n_ref, cfg)
-    j_end, score = final_slot_and_score(v_fin, acc, lo[:, -1], n_ref)
+    with span("nadavca.fill"):
+        decs, v_fin, acc = viterbi_fill(x, t_len, mu, sigma, lo, delta, n_ref, cfg)
+    with span("nadavca.final_slot"):
+        j_end, score = final_slot_and_score(v_fin, acc, lo[:, -1], n_ref)
     if not with_path:
         return ViterbiResult(score=score, path=None, final_j=j_end), decs
-    if count_lanes is None:
-        path = backtrack(decs, lo, delta, j_end, cfg.signal_chunk)
-        return ViterbiResult(score=score, path=path, final_j=j_end), decs
-    path, cnt = backtrack(decs, lo, delta, j_end, cfg.signal_chunk, t_len=t_len,
-                          n_lanes=count_lanes)
+    with span("nadavca.walk"):
+        if count_lanes is None:
+            path, cnt = backtrack(decs, lo, delta, j_end, cfg.signal_chunk), None
+        else:
+            path, cnt = backtrack(decs, lo, delta, j_end, cfg.signal_chunk,
+                                  t_len=t_len, n_lanes=count_lanes)
     return ViterbiResult(score=score, path=path, final_j=j_end, counts=cnt), decs

@@ -43,6 +43,8 @@ import torch
 from ..config import AlignConfig
 from .. import call as callmod
 from .. import pipeline as pipelinemod
+from ..utils.metrics import PROCESS as METRICS
+from ..utils.profiling import span
 from . import distributed as dist
 
 
@@ -125,7 +127,9 @@ def shard_batch(mesh: Mesh, batch: pipelinemod.Batch, model, cfg: AlignConfig,
     and stage each on its device. ``tables``: :func:`replicate_tables`.
     ``window_start`` replaces ``batch.window_start`` in the scatter (the CLI
     adds the contigs' offsets in the concatenated genome). Under a process
-    group the batch is this rank's rows only."""
+    group the batch is this rank's rows only. Span ``nadavca.upload``; the
+    bytes handed to the device count as ``upload_bytes``
+    (``utils.metrics.PROCESS``)."""
     n = len(mesh.devices)
     R = batch.x.shape[0]
     if R % n:
@@ -133,16 +137,20 @@ def shard_batch(mesh: Mesh, batch: pipelinemod.Batch, model, cfg: AlignConfig,
     wstart = batch.window_start if window_start is None else window_start
     r = R // n
     blocks = []
-    for i, dev in enumerate(mesh.devices):
-        blk = pipelinemod.batch_rows(batch, i * r, (i + 1) * r)
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        blocks.append(Block(
-            device=dev, batch=blk,
-            staged=pipelinemod.stage_batch(
-                blk, model, cfg, backend, device=dev,
-                subst=None if tables is None else tables[dev]),
-            wstart=put(np.asarray(wstart[i * r:(i + 1) * r], np.int64)),
-            wlen=put(blk.window_len), strand=put(blk.strand)))
+    with span("nadavca.upload"):
+        for i, dev in enumerate(mesh.devices):
+            blk = pipelinemod.batch_rows(batch, i * r, (i + 1) * r)
+            host = (np.ascontiguousarray(wstart[i * r:(i + 1) * r], np.int64),
+                    np.ascontiguousarray(blk.window_len),
+                    np.ascontiguousarray(blk.strand))
+            METRICS.count("upload_bytes", sum(a.nbytes for a in host))
+            ws, wl, sd = (torch.from_numpy(a).to(dev) for a in host)
+            blocks.append(Block(
+                device=dev, batch=blk,
+                staged=pipelinemod.stage_batch(
+                    blk, model, cfg, backend, device=dev,
+                    subst=None if tables is None else tables[dev]),
+                wstart=ws, wlen=wl, strand=sd))
     return blocks
 
 
@@ -192,33 +200,40 @@ def make_sharded_step(mesh: Mesh, cfg: AlignConfig, genome_len: int,
     position's contribution, the genome-sharded one keeps each position's
     slice of that sum, and ``merge_deferred`` adds each block to its
     position's partial in place and communicates nothing (merge with
-    :func:`make_merge_fn`)."""
+    :func:`make_merge_fn`). Spans: ``nadavca.step`` around the whole step;
+    ``nadavca.merge`` around each block's fresh accumulators and, once more,
+    around the sum of the parts into the state (not in the deferred mode)."""
     G = genome_len
     if genome_sharded and G % mesh.size:
         raise ValueError(f"genome_len {G} not divisible by mesh size {mesh.size}")
 
     def step(blocks, acc, cov, votes):
-        outs = [pipelinemod.align_batch(b.batch, None, cfg, staged=b.staged)
-                for b in blocks]
-        if merge_deferred:
-            for b, o, a, c, v in zip(blocks, outs, acc, cov, votes, strict=True):
-                callmod.accumulate_batch_(a, c, v, o["base_loglik"], b.wstart,
-                                          b.wlen, b.strand, cfg)
-        else:
-            parts = []
-            for b, o in zip(blocks, outs, strict=True):
-                z = callmod.make_accumulators(G, with_votes=True, device=b.device)
-                parts.append(callmod.accumulate_batch(
-                    z[0], z[1], o["base_loglik"], b.wstart, b.wlen, b.strand,
-                    votes=z[2], cfg=cfg))
-            acc, cov, votes = (
-                [x + d for x, d in zip(state, _reduce(mesh, [p[j] for p in parts],
-                                                      genome_sharded), strict=True)]
-                for j, state in enumerate((acc, cov, votes)))
-        score = _cat(mesh, [o["score"] for o in outs])
-        if with_path:
-            return score, _cat(mesh, [o["path"] for o in outs]), acc, cov, votes
-        return score, acc, cov, votes
+        with span("nadavca.step"):
+            outs = [pipelinemod.align_batch(b.batch, None, cfg, staged=b.staged)
+                    for b in blocks]
+            if merge_deferred:
+                for b, o, a, c, v in zip(blocks, outs, acc, cov, votes, strict=True):
+                    callmod.accumulate_batch_(a, c, v, o["base_loglik"], b.wstart,
+                                              b.wlen, b.strand, cfg)
+            else:
+                parts = []
+                for b, o in zip(blocks, outs, strict=True):
+                    with span("nadavca.merge"):
+                        z = callmod.make_accumulators(G, with_votes=True,
+                                                      device=b.device)
+                    parts.append(callmod.accumulate_batch(
+                        z[0], z[1], o["base_loglik"], b.wstart, b.wlen, b.strand,
+                        votes=z[2], cfg=cfg))
+                with span("nadavca.merge"):
+                    acc, cov, votes = (
+                        [x + d for x, d in zip(
+                            state, _reduce(mesh, [p[j] for p in parts], genome_sharded),
+                            strict=True)]
+                        for j, state in enumerate((acc, cov, votes)))
+            score = _cat(mesh, [o["score"] for o in outs])
+            if with_path:
+                return score, _cat(mesh, [o["path"] for o in outs]), acc, cov, votes
+            return score, acc, cov, votes
 
     return step
 
@@ -229,9 +244,10 @@ def make_sharded_align(mesh: Mesh, cfg: AlignConfig):
     alignment files hold the segments only."""
 
     def step(blocks):
-        outs = [pipelinemod.align_batch(b.batch, None, cfg, staged=b.staged,
-                                        rescore=False) for b in blocks]
-        return {k: _cat(mesh, [o[k] for o in outs]) for k in ("score", "path")}
+        with span("nadavca.step"):
+            outs = [pipelinemod.align_batch(b.batch, None, cfg, staged=b.staged,
+                                            rescore=False) for b in blocks]
+            return {k: _cat(mesh, [o[k] for o in outs]) for k in ("score", "path")}
 
     return step
 

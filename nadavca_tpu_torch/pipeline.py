@@ -31,6 +31,8 @@ from .genome import Genome, kmer_ids
 from .kmer_model import KmerModel
 from .ops import banded_dp, cuda_dp, cuda_rescore
 from .sched.bands import ChunkedBands, build_chunked_bands
+from .utils.metrics import PROCESS as METRICS
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -316,8 +318,8 @@ def device_compute(
     here. ``woff`` (R,) i32 and ``subst`` (the genome's ``SubstTables``) are
     None off the tables path; ``woff_range`` the smallest and largest offset,
     from the host. Under backend ``"cuda"`` with the local rescore
-    the walk also emits the path's segment counts, which the rescore takes.
-    Returns (score (R,), path (R, T) i32, base_ll (R, L, 4), or None when
+    the walk also emits the path's segment counts, which the rescore takes
+    (span ``nadavca.rescore``). Returns (score (R,), path (R, T) i32, base_ll (R, L, 4), or None when
     ``rescore`` is False).
     """
     check_supported(cfg, backend, x.device)
@@ -334,9 +336,12 @@ def device_compute(
     else:
         raise ValueError(f"unknown backend {backend!r}")
     if not rescore:
-        base_ll = None
-    elif local:
-        if backend == "cuda":
+        return res.score, res.path, None
+    with span("nadavca.rescore"):
+        if not local:
+            stats = banded_dp.segment_stats_batch(res.path, x, t_len, mu.shape[1])
+            base_ll = banded_dp.base_loglik_batch(codes, ids, stats, lm, ls, k)
+        elif backend == "cuda":
             base_ll = cuda_rescore.base_loglik_local_cuda(
                 x, res.path, t_len, codes, ids, lm, ls, k, cfg,
                 t_w=cfg.snp_local_window, tables=subst, window_off=woff,
@@ -345,9 +350,6 @@ def device_compute(
             base_ll = banded_dp.base_loglik_local_batch(
                 x, res.path, t_len, codes, ids, lm, ls, k, cfg,
                 t_w=cfg.snp_local_window)
-    else:
-        stats = banded_dp.segment_stats_batch(res.path, x, t_len, mu.shape[1])
-        base_ll = banded_dp.base_loglik_batch(codes, ids, stats, lm, ls, k)
     return res.score, res.path, base_ll
 
 
@@ -369,24 +371,31 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
     no (n_chunks, R, B) band array crosses the host-device link. ``subst``
     (``ops.subst_tables.SubstTables`` of the genome, already on ``device``) is
     used by the kernel backend's local rescore only; the per-read table
-    offsets are computed here and checked against the table's tail pad.
+    offsets are computed here (span ``nadavca.upload.offsets``) and checked
+    against the table's tail pad. The bytes handed to the copies are counted
+    in ``utils.metrics.PROCESS`` as ``upload_bytes``.
     """
     backend = resolve_backend(cfg, backend)
     dev = torch.device(device)
+    n_bytes = 0
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        nonlocal n_bytes
+        a = np.ascontiguousarray(a)
+        n_bytes += a.nbytes
+        return torch.from_numpy(a).to(dev)
 
     woff = woff_range = None
     if subst is not None and backend == "cuda" and cfg.snp_rescore == "local":
-        off = subst.window_offsets(
-            batch.contigs, batch.window_start, batch.window_len, batch.strand,
-            padded_len=batch.codes.shape[1])
+        with span("nadavca.upload.offsets"):
+            off = subst.window_offsets(
+                batch.contigs, batch.window_start, batch.window_len, batch.strand,
+                padded_len=batch.codes.shape[1])
+            woff_range = (int(off.min()), int(off.max())) if len(off) else None
         woff = put(off)
-        woff_range = (int(off.min()), int(off.max())) if len(off) else None
     else:
         subst = None
-    return dict(
+    staged = dict(
         x=put(batch.x), t_len=put(batch.t_len),
         mu=put(batch.mu), sigma=put(batch.sigma),
         n_ref=put(batch.n_ref), lo=put(batch.bands.lo),
@@ -397,6 +406,8 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
         woff=woff, woff_range=woff_range, subst=subst,
         backend=backend, k=model.k,
     )
+    METRICS.count("upload_bytes", n_bytes)
+    return staged
 
 
 def align_batch(

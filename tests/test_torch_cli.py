@@ -9,6 +9,7 @@ JAX package's ``simulate``, which the port's reproduces byte for byte.
 import json
 import os
 import shutil
+import threading
 import types
 
 import numpy as np
@@ -361,22 +362,41 @@ def test_align_shards_files_and_refuses_reads_in_memory(sim, port_sim_aln, tmp_p
 
 # --------------------------------------------------------------- utils
 def test_metrics_stage_timer_and_trace(tmp_path, capsys):
+    """Counters and gauges, and a span: a no-op with no profiler running, a
+    named range in the ``--profile`` trace (every thread's) under one."""
     m = metricsmod.Metrics()
     m.count("reads", 3)
     m.count("reads")
     m.gauge("reads_per_s", 12.34567)
-    st = profiling.StageTimer(m)
-    with st.stage("prep"):
-        pass
     snap = m.snapshot()
     assert snap["counters"]["reads"] == 4
     assert snap["gauges"]["reads_per_s"] == 12.3457
-    assert "stage_prep_s" in snap["gauges"] and st.totals["prep"] >= 0
     m.report()
     assert capsys.readouterr().err.startswith("[metrics] {")
+    m.reset()
+    assert m.snapshot()["counters"] == {} and m.snapshot()["gauges"] == {}
+    assert not profiling.profiler_on()
+    with profiling.span("nadavca.prep"):
+        pass
     with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(4).sum()
-    assert json.load(open(tmp_path / "tr" / "trace.json"))
+        assert profiling.profiler_on()
+        with profiling.span("nadavca.prep"):
+            torch.ones(4).sum()
+
+        def on_a_thread():
+            with profiling.span("nadavca.drain"):
+                pass
+
+        worker = threading.Thread(target=on_a_thread)
+        worker.start()
+        worker.join(60)
+        assert not worker.is_alive()
+    assert not profiling.profiler_on()
+    events = json.load(open(tmp_path / "tr" / "trace.json"))["traceEvents"]
+    threads = {e["name"]: e["tid"] for e in events
+               if e.get("name", "").startswith("nadavca.")}
+    assert set(threads) == {"nadavca.prep", "nadavca.drain"}
+    assert threads["nadavca.prep"] != threads["nadavca.drain"]
     with profiling.trace(None):
         pass
 

@@ -21,9 +21,6 @@ import torch
 from .config import AlignConfig
 from .utils.profiling import span
 
-# complement permutation of the base axis (A<->T, C<->G)
-_COMP = (3, 2, 1, 0)
-
 
 def scatter_values(
     base_ll: torch.Tensor,      # (R, L, 4) float32 per-read window log-likelihoods
@@ -56,9 +53,10 @@ def scatter_values(
     valid = (li < window_len[:, None]) & (pos >= 0) & (pos < G)
     pos_safe = torch.where(valid, pos, torch.full_like(pos, G))     # overflow row
 
-    # complement base axis for reverse reads
-    comp = torch.tensor(_COMP, dtype=torch.int64, device=dev)
-    ll_rev = base_ll[:, :, comp]
+    # complement base axis for reverse reads: A C G T -> T G C A, the axis
+    # reversed (made on the device: a tensor of indices from the host would be
+    # a blocking copy in the middle of the step)
+    ll_rev = base_ll.flip(2)
     ll_raw = torch.where(rev[:, :, None], ll_rev, base_ll)
     ll = ll_raw.clamp(-cfg.snp_ll_clip, cfg.snp_ll_clip)
     ll = torch.where(valid[:, :, None], ll, torch.zeros_like(ll))

@@ -43,8 +43,8 @@ import torch
 from ..config import AlignConfig
 from .. import call as callmod
 from .. import pipeline as pipelinemod
-from ..utils.metrics import PROCESS as METRICS
 from ..utils.profiling import span
+from ..utils.upload import Upload
 from . import distributed as dist
 
 
@@ -127,9 +127,10 @@ def shard_batch(mesh: Mesh, batch: pipelinemod.Batch, model, cfg: AlignConfig,
     and stage each on its device. ``tables``: :func:`replicate_tables`.
     ``window_start`` replaces ``batch.window_start`` in the scatter (the CLI
     adds the contigs' offsets in the concatenated genome). Under a process
-    group the batch is this rank's rows only. Span ``nadavca.upload``; the
-    bytes handed to the device count as ``upload_bytes``
-    (``utils.metrics.PROCESS``)."""
+    group the batch is this rank's rows only. Span ``nadavca.upload``. Each
+    block's copies are one ``utils.upload.Upload``: on a CUDA device they
+    run on the device's copy stream and the caller's stream waits for them,
+    so the host returns before they finish."""
     n = len(mesh.devices)
     R = batch.x.shape[0]
     if R % n:
@@ -140,17 +141,14 @@ def shard_batch(mesh: Mesh, batch: pipelinemod.Batch, model, cfg: AlignConfig,
     with span("nadavca.upload"):
         for i, dev in enumerate(mesh.devices):
             blk = pipelinemod.batch_rows(batch, i * r, (i + 1) * r)
-            host = (np.ascontiguousarray(wstart[i * r:(i + 1) * r], np.int64),
-                    np.ascontiguousarray(blk.window_len),
-                    np.ascontiguousarray(blk.strand))
-            METRICS.count("upload_bytes", sum(a.nbytes for a in host))
-            ws, wl, sd = (torch.from_numpy(a).to(dev) for a in host)
-            blocks.append(Block(
-                device=dev, batch=blk,
-                staged=pipelinemod.stage_batch(
+            with Upload(dev) as up:
+                staged = pipelinemod.stage_batch(
                     blk, model, cfg, backend, device=dev,
-                    subst=None if tables is None else tables[dev]),
-                wstart=ws, wlen=wl, strand=sd))
+                    subst=None if tables is None else tables[dev], upload=up)
+                blocks.append(Block(
+                    device=dev, batch=blk, staged=staged,
+                    wstart=up.put(np.asarray(wstart[i * r:(i + 1) * r], np.int64)),
+                    wlen=up.put(blk.window_len), strand=up.put(blk.strand)))
     return blocks
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``nadavca_tpu/pipeline.py``. The host does ingest,
 normalization, anchoring, window/level precompute and batch padding (numpy);
-``stage_batch`` puts the batch on the requested device; ``device_compute``
+``stage_batch`` puts the batch on the requested device (on a CUDA device from
+page-locked memory, without waiting: ``utils/upload.py``); ``device_compute``
 runs the banded Viterbi (the CUDA kernels of ``ops/cuda_dp`` under backend
 ``"cuda"``, the plain loop of ``ops/banded_dp`` under ``"scan"``) and the
 rescore: the local re-DP (``snp_rescore="local"``, the default; the CUDA
@@ -31,8 +32,8 @@ from .genome import Genome, kmer_ids
 from .kmer_model import KmerModel
 from .ops import banded_dp, cuda_dp, cuda_rescore
 from .sched.bands import ChunkedBands, build_chunked_bands
-from .utils.metrics import PROCESS as METRICS
 from .utils.profiling import span
+from .utils.upload import Upload, host_full
 
 
 @dataclasses.dataclass
@@ -52,7 +53,10 @@ class ReadRecord:
 
 @dataclasses.dataclass
 class Batch:
-    """Padded device-ready batch plus host-side metadata."""
+    """Padded device-ready batch plus host-side metadata. Where CUDA is
+    present, every array ``stage_batch`` uploads (the bands' too) is a numpy
+    view of a page-locked torch tensor, which it holds as its ``base``
+    (``utils.upload``)."""
 
     x: np.ndarray             # (R, T) f32
     t_len: np.ndarray         # (R,) i32
@@ -213,17 +217,18 @@ def assemble_batch(
     L = _round_up(L_raw, 256)
     N = L - model.k + 1
 
-    x = np.zeros((R, T), np.float32)
-    t_len = np.zeros(R, np.int32)
-    mu = np.zeros((R, N), np.float32)
-    sigma = np.ones((R, N), np.float32)
-    n_ref = np.zeros(R, np.int32)
+    # the uploaded arrays are page-locked where CUDA is present
+    x = host_full((R, T), 0, np.float32)
+    t_len = host_full(R, 0, np.int32)
+    mu = host_full((R, N), 0, np.float32)
+    sigma = host_full((R, N), 1, np.float32)
+    n_ref = host_full(R, 0, np.int32)
     anchors = np.zeros((R, T), np.float64)
-    codes = np.full((R, L), 4, np.int32)
-    ids = np.full((R, N), -1, np.int32)
-    wstart = np.zeros(R, np.int32)
-    wlen = np.zeros(R, np.int32)
-    strand = np.ones(R, np.int32)
+    codes = host_full((R, L), 4, np.int32)
+    ids = host_full((R, N), -1, np.int32)
+    wstart = host_full(R, 0, np.int32)
+    wlen = host_full(R, 0, np.int32)
+    strand = host_full(R, 1, np.int32)
     read_ids = []
     contigs = []
 
@@ -364,7 +369,8 @@ def resolve_backend(cfg: AlignConfig, backend: str = "auto") -> str:
 
 
 def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
-                backend: str, device="cuda", subst=None) -> dict:
+                backend: str, device="cuda", subst=None,
+                upload: Optional[Upload] = None) -> dict:
     """Put everything ``device_compute`` consumes on ``device``.
 
     Band levels are sliced on the device (by the fills' producer warps), so
@@ -372,19 +378,21 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
     (``ops.subst_tables.SubstTables`` of the genome, already on ``device``) is
     used by the kernel backend's local rescore only; the per-read table
     offsets are computed here (span ``nadavca.upload.offsets``) and checked
-    against the table's tail pad. The bytes handed to the copies are counted
-    in ``utils.metrics.PROCESS`` as ``upload_bytes``.
+    against the table's tail pad. The copies are those of ``utils.upload``:
+    asynchronous on a CUDA device, the caller's stream made to wait for them
+    on return; ``upload``, the :class:`~.utils.upload.Upload` this staging
+    joins (``parallel.sharded.shard_batch``'s), else one of its own.
     """
+    if upload is None:
+        with Upload(device) as up:
+            return stage_batch(batch, model, cfg, backend, device, subst, up)
     backend = resolve_backend(cfg, backend)
-    dev = torch.device(device)
-    n_bytes = 0
-
-    def put(a):
-        nonlocal n_bytes
-        a = np.ascontiguousarray(a)
-        n_bytes += a.nbytes
-        return torch.from_numpy(a).to(dev)
-
+    put = upload.put
+    # the signal first: on a CUDA device its copy, the largest, runs while
+    # the host computes the table offsets and issues the other copies
+    staged = dict(x=put(batch.x), t_len=put(batch.t_len), mu=put(batch.mu),
+                  sigma=put(batch.sigma), n_ref=put(batch.n_ref),
+                  lo=put(batch.bands.lo), delta=put(batch.bands.delta))
     woff = woff_range = None
     if subst is not None and backend == "cuda" and cfg.snp_rescore == "local":
         with span("nadavca.upload.offsets"):
@@ -395,18 +403,13 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
         woff = put(off)
     else:
         subst = None
-    staged = dict(
-        x=put(batch.x), t_len=put(batch.t_len),
-        mu=put(batch.mu), sigma=put(batch.sigma),
-        n_ref=put(batch.n_ref), lo=put(batch.bands.lo),
-        delta=put(batch.bands.delta),
+    staged.update(
         codes=put(batch.codes), ids=put(batch.ids),
         lm=put(model.level_mean.astype(np.float32)),
         ls=put(model.level_std.astype(np.float32)),
         woff=woff, woff_range=woff_range, subst=subst,
         backend=backend, k=model.k,
     )
-    METRICS.count("upload_bytes", n_bytes)
     return staged
 
 

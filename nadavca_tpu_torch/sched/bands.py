@@ -23,6 +23,8 @@ import dataclasses
 
 import numpy as np
 
+from ..utils.upload import host_copy
+
 
 @dataclasses.dataclass
 class ChunkedBands:
@@ -65,6 +67,7 @@ def build_chunked_bands(
     nondecreasing, frozen after each read's last chunk, and per-chunk jumps
     capped at ``band_width`` (a larger jump would disconnect the band; the
     cap keeps the DP well-defined and such reads simply score badly).
+    ``lo`` and ``delta`` are page-locked where CUDA is present (``utils.upload``).
     """
     R, T = anchors.shape
     B, C = band_width, chunk_size
@@ -87,8 +90,8 @@ def build_chunked_bands(
     lo = lo[:, :1] + np.cumsum(delta, axis=1) - delta[:, :1]
     delta = np.diff(lo, axis=1, prepend=lo[:, :1])
     return ChunkedBands(
-        lo=lo.astype(np.int32),
-        delta=delta.astype(np.int32),
+        lo=host_copy(lo, np.int32),
+        delta=host_copy(delta, np.int32),
         chunk_size=C,
         band_width=B,
     )

@@ -9,7 +9,9 @@ profile and the process registry's counters
 (``nadavca_tpu_torch.utils.metrics.PROCESS``) at the window's start and end,
 and reads with ``h100_bench/program_trace.py`` what the benchmark's own
 traced run does not read yet: ``accumulate_ms_per_batch``,
-``merge_ms_per_batch``, ``h2d_gb_per_s``, ``launches_per_batch``, the idle
+``merge_ms_per_batch``, ``h2d_gb_per_s``, ``upload_async_share`` (the share
+of the window's ``upload_bytes`` copied without waiting, from page-locked
+memory: ``upload_async_bytes`` over ``upload_bytes``), ``launches_per_batch``, the idle
 time by program span (``idle_gaps_program``), the device time by innermost
 program span and the step's device operations by name. Three checks:
 ``accumulate_ms_per_batch`` against ``scatter_ms_per_batch``; the HtoD time
@@ -78,11 +80,13 @@ def main(argv=None) -> int:
     prog = pt.from_profile(kept["prof"], tr)
     window = res.pop("_window")
     n = window["batches"]
-    upload = kept["end"].get("upload_bytes", 0) - kept["start"].get("upload_bytes", 0)
+    upload, upload_async = (kept["end"].get(k, 0) - kept["start"].get(k, 0)
+                            for k in ("upload_bytes", "upload_async_bytes"))
     m = {k: v["value"] for k, v in res["metrics"].items()}
     new = {"accumulate_ms_per_batch": pt.ms_per_batch(tr, prog, "nadavca.accumulate", n),
            "merge_ms_per_batch": pt.ms_per_batch(tr, prog, "nadavca.merge", n),
            "h2d_gb_per_s": pt.h2d_gb_per_s(tr, prog, upload),
+           "upload_async_share": upload_async / upload if upload else None,
            "launches_per_batch": pt.launches_per_batch(tr, prog, n)}
 
     by_span = collections.Counter()
@@ -115,7 +119,12 @@ def main(argv=None) -> int:
            "idle_gaps_program": pt.breakdown_program(tr, prog),
            "device_s_by_span": dict(by_span.most_common()),
            "step_ops_per_batch": {k: v / n for k, v in step_ops.most_common(30)},
-           "program_spans": len(prog.spans)}
+           "program_spans": len(prog.spans),
+           # the page-locked blocks PyTorch's host allocator holds (the pool's
+           # batches, rounded up by the allocator, and the small staging blocks)
+           "host_memory_stats": {
+               k: v for k, v in getattr(torch.cuda, "host_memory_stats", dict)().items()
+               if "bytes" in k}}
     print(json.dumps(out))
     return 0
 

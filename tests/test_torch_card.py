@@ -656,3 +656,204 @@ def test_three_contig_world_on_the_card(card, tmp_path):
                                       "cuda", CONTIG_TIES)
     _hold_plain("three contigs: card against the plain versions", batches, got["runs"],
                 model, cfg, reference, CONTIG_TIES)
+
+
+# ---------------------------------------------------------------- the upload
+
+def _long_world(seed, n_reads=256, bases=4000, G=60000):
+    """A batch of ``n_reads`` forward reads of ``bases`` bases each, made
+    without the simulator: each k-mer's expected level for 8-12 samples plus
+    noise, the true path as the anchor path. Returns what the step needs."""
+    import nadavca_tpu_torch as nt
+    from nadavca_tpu_torch import pipeline
+    from nadavca_tpu_torch.anchor import Anchor
+    from nadavca_tpu_torch.genome import Contig, Genome
+    from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
+
+    rng = np.random.default_rng(seed)
+    model = nt.default_model()
+    cfg = AlignConfig(band_width=256)
+    genome = Genome([Contig("ref", rng.integers(0, 4, G).astype(np.int8))])
+    tables = build_subst_tables(genome, model, device="cuda")
+
+    def batch(batch_seed):
+        r = np.random.default_rng(batch_seed)
+        records = []
+        for i in range(n_reads):
+            s = int(r.integers(0, G - bases))
+            codes = genome.window("ref", s, s + bases, 1)
+            mu, sigma = model.expected_signal(codes)
+            path = np.repeat(np.arange(len(mu)), r.integers(8, 13, len(mu)))
+            x = (mu[path] + 0.3 * sigma[path] * r.standard_normal(len(path)))
+            records.append(pipeline.ReadRecord(
+                read_id=f"b{batch_seed}r{i}", signal=x.astype(np.float32),
+                anchor=Anchor("ref", 1, s, s + bases, np.arange(bases, dtype=np.float64),
+                              bases),
+                anchor_path=path.astype(np.float64), window_codes=codes))
+        return pipeline.assemble_batch(records, model, cfg)
+
+    return dict(model=model, cfg=cfg, G=G, tables=tables, batch=batch)
+
+
+def _blocking_blocks(mesh, batch, model, cfg, tables):
+    """``shard_batch``'s blocks, every array put with the blocking
+    ``torch.from_numpy(a).to(device)`` from pageable memory."""
+    from nadavca_tpu_torch import pipeline
+    from nadavca_tpu_torch.parallel import sharded
+
+    n = len(mesh.devices)
+    r = batch.x.shape[0] // n
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        blk = pipeline.batch_rows(batch, i * r, (i + 1) * r)
+        put = lambda a: torch.from_numpy(np.array(a)).to(dev)
+        off = tables[dev].window_offsets(blk.contigs, blk.window_start, blk.window_len,
+                                         blk.strand, padded_len=blk.codes.shape[1])
+        staged = dict(
+            x=put(blk.x), t_len=put(blk.t_len), mu=put(blk.mu), sigma=put(blk.sigma),
+            n_ref=put(blk.n_ref), lo=put(blk.bands.lo), delta=put(blk.bands.delta),
+            codes=put(blk.codes), ids=put(blk.ids),
+            lm=put(model.level_mean.astype(np.float32)),
+            ls=put(model.level_std.astype(np.float32)), woff=put(off),
+            woff_range=(int(off.min()), int(off.max())), subst=tables[dev],
+            backend="cuda", k=model.k)
+        out.append(sharded.Block(dev, blk, staged,
+                                 put(blk.window_start.astype(np.int64)),
+                                 put(blk.window_len), put(blk.strand)))
+    return out
+
+
+def _run_step(mesh, w, blocks):
+    from nadavca_tpu_torch.parallel import sharded
+
+    accs = sharded.make_accumulators_sharded(mesh, w["G"])
+    score, *accs = sharded.make_sharded_step(mesh, w["cfg"], w["G"], with_path=False)(
+        blocks, *accs)
+    return score.cpu(), [sharded.fetch(mesh, a) for a in accs]
+
+
+def _assert_same_step(got, want):
+    (s, (acc, cov, votes)), (s_ref, (acc_ref, cov_ref, votes_ref)) = got, want
+    assert torch.equal(s, s_ref)
+    np.testing.assert_array_equal(cov, cov_ref)
+    np.testing.assert_array_equal(votes, votes_ref)
+    # float atomics add in another order from run to run
+    assert np.abs(acc - acc_ref).max() <= 1e-5 * np.abs(acc_ref).max()
+
+
+@pytest.mark.parametrize("n_positions", [1, 2])
+def test_async_upload_gives_the_blocking_upload(card, n_positions):
+    """Every array of the batch page-locked; ``shard_batch`` on one and on
+    two mesh positions (``[cuda:0, cuda:0]``) stages tensors bit-identical
+    to the blocking copies, all of its bytes copied without waiting, and the
+    step gives the blocking staging's scores and accumulators."""
+    from nadavca_tpu_torch.parallel import sharded
+    from nadavca_tpu_torch.utils import metrics, upload
+
+    w = _long_world(16, n_reads=64, bases=1500, G=20000)
+    batch = w["batch"](1)
+    for a in (batch.x, batch.t_len, batch.mu, batch.sigma, batch.n_ref, batch.codes,
+              batch.ids, batch.window_start, batch.window_len, batch.strand,
+              batch.bands.lo, batch.bands.delta):
+        assert upload.tensor_under(a).is_pinned()
+    mesh = sharded.Mesh((card,) * n_positions)
+    tables = sharded.replicate_tables(mesh, w["tables"])
+    c = metrics.PROCESS.counters
+    before = (c.get("upload_bytes", 0), c.get("upload_async_bytes", 0))
+    blocks = sharded.shard_batch(mesh, batch, w["model"], w["cfg"], "cuda", tables)
+    moved = (c["upload_bytes"] - before[0], c["upload_async_bytes"] - before[1])
+    assert moved[0] > batch.x.nbytes and moved[0] == moved[1]
+    ref = _blocking_blocks(mesh, batch, w["model"], w["cfg"], tables)
+    for b, r in zip(blocks, ref, strict=True):
+        for name in ("x", "t_len", "mu", "sigma", "n_ref", "lo", "delta", "codes", "ids",
+                     "lm", "ls", "woff"):
+            assert b.staged[name].dtype == r.staged[name].dtype, name
+            assert torch.equal(b.staged[name], r.staged[name]), name
+        assert b.staged["woff_range"] == r.staged["woff_range"]
+        for name in ("wstart", "wlen", "strand"):
+            assert torch.equal(getattr(b, name), getattr(r, name)), name
+    _assert_same_step(_run_step(mesh, w, blocks), _run_step(mesh, w, ref))
+
+
+def test_a_batch_freed_while_its_copies_wait(card):
+    """The copy stream held back by a sleeping kernel: the batch is freed on
+    the host before its copies run, and another batch of the same shape is
+    assembled and staged meanwhile. The host allocator hands the second
+    batch other page-locked memory, so the first step still gives the
+    blocking staging's results."""
+    import dataclasses
+    from nadavca_tpu_torch.parallel import sharded
+    from nadavca_tpu_torch.utils import upload
+
+    w = _long_world(17, n_reads=64, bases=1500, G=20000)
+    mesh = sharded.make_mesh(1, card)
+    tables = sharded.replicate_tables(mesh, w["tables"])
+    first = w["batch"](1)
+    want_first = _run_step(mesh, w, _blocking_blocks(mesh, first, w["model"], w["cfg"],
+                                                     tables))
+    torch.cuda.synchronize()
+    stream = upload.copy_stream(card)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(3_000_000_000)
+    blocks = sharded.shard_batch(mesh, first, w["model"], w["cfg"], "cuda", tables)
+    blocks = [dataclasses.replace(b, batch=None) for b in blocks]
+    del first
+    second = w["batch"](2)
+    assert not stream.query(), "the first batch's copies ran before the test could free it"
+    blocks2 = sharded.shard_batch(mesh, second, w["model"], w["cfg"], "cuda", tables)
+    got_first = _run_step(mesh, w, blocks)
+    got_second = _run_step(mesh, w, blocks2)
+    _assert_same_step(got_first, want_first)
+    _assert_same_step(got_second, _run_step(
+        mesh, w, _blocking_blocks(mesh, second, w["model"], w["cfg"], tables)))
+
+
+def test_the_upload_runs_under_the_previous_step(card):
+    """Six batches, each uploaded as soon as the step before it is enqueued
+    (as the CLI's staging thread does), at most two scores pending; traced:
+    no host-to-device copy from pageable memory, every byte copied without
+    waiting, and a host-to-device copy runs while a kernel of the step
+    before it does."""
+    from torch.profiler import ProfilerActivity, profile
+    from nadavca_tpu_torch.parallel import sharded
+    from nadavca_tpu_torch.utils import metrics
+
+    w = _long_world(18, bases=6000, G=100000)
+    mesh = sharded.make_mesh(1, card)
+    tables = sharded.replicate_tables(mesh, w["tables"])
+    batches = [w["batch"](i) for i in range(2)]
+    assert batches[0].x.shape[0] == 256 and batches[0].x.shape[1] > 60000
+    step = sharded.make_sharded_step(mesh, w["cfg"], w["G"], with_path=False)
+
+    def stage(i):
+        return sharded.shard_batch(mesh, batches[i % 2], w["model"], w["cfg"], "cuda",
+                                   tables)
+
+    def loop(state, n):
+        pending, blocks = [], stage(0)
+        for i in range(n):
+            score, *state = step(blocks, *state)
+            if i + 1 < n:
+                blocks = stage(i + 1)
+            pending.append(score)
+            while len(pending) > 2:
+                pending.pop(0).cpu()
+        for s in pending:
+            s.cpu()
+        return state
+
+    state = loop(sharded.make_accumulators_sharded(mesh, w["G"]), 2)   # warm-up
+    c = metrics.PROCESS.counters
+    before = (c["upload_bytes"], c["upload_async_bytes"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loop(state, 6)
+        torch.cuda.synchronize()
+    assert c["upload_bytes"] - before[0] == c["upload_async_bytes"] - before[1] > 0
+    dev = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA") and not e.is_user_annotation()]
+    h2d = [d for d in dev if "HtoD" in d[0]]
+    kernels = [d for d in dev if "Memcpy" not in d[0] and "Memset" not in d[0]]
+    assert h2d and kernels
+    assert not [n for n, _, _ in h2d if "Pageable" in n], {n for n, _, _ in h2d}
+    assert any(a < kb and ka < b for _, a, b in h2d for _, ka, kb in kernels)

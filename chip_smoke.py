@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``nadavca_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version on the card (at the main and the wide
 shape; the walk also at 384 and 1024 slots, the two-sample fill at 384, the
-two rescore tile kernels also on rows shorter than 2304 samples and on rows
-of 2561), drives the port's main path — the default
+two rescore tile kernels also on rows shorter than 2304 samples, on rows
+of 2561, and at k = 9, the R10.4.1 pore's 9-mer model, at T 22,016 and band
+256 with 12.5 samples a base), drives the port's main path — the default
 configuration: reads → banded Viterbi (the fill gathering its own band
 levels) → the local re-DP rescore with genome tables in one kernel → SNP
 calls — through the public ``api`` at a realistic batch size, checks the
@@ -148,6 +149,8 @@ MIN_RECALL = 0.5
 # the skip configuration of this slice, and the pore-skip rate of its reads
 SKIP_FIELDS = dict(use_skip=True, log_p_skip=-4.6)
 SKIP_PROB = 0.08
+# the 9-mer model's k, and its signal's samples a base (5 kHz at 400 bases/s)
+K9, K9_DWELL = 9, 12.5
 
 
 def reset_launches() -> None:
@@ -517,11 +520,12 @@ def live_close(tag, got, want):
     return float(diff.max())
 
 
-def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int):
+def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int,
+                          exact: bool = False):
     """The two rescore tile kernels (K5 with tables, K6 without, each with K4
     folded in) against their plain versions on the card at this batch's
-    shapes, on the path and counts the card's walk gave. Returns {kernel
-    name: numbers}."""
+    shapes, on the path and counts the card's walk gave; with ``exact`` K5
+    too to the bit (K6 always). Returns {kernel name: numbers}."""
     R, T = batch.x.shape
     L = batch.codes.shape[1]
     N = batch.ids.shape[1]
@@ -542,6 +546,7 @@ def check_rescore_kernels(tag: str, batch, a, path, cnt, cfg, tables, reps: int)
     want, plain_ms = timed(lambda: cuda_rescore.rescore_local_tab_plain(*local_args))
     assert torch.equal(got == 0, want == 0), f"{tag}: rescore_local_tab masks differ"
     err = live_close(f"{tag}: rescore_local_tab", got, want)
+    assert not exact or torch.equal(got, want), f"{tag}: rescore_local_tab differs"
     # what this run's data needs: the DP over the live samples of the
     # positions that are not masked (8 operations per cell and sample, 4 * k
     # cells), the samples of x and the inputs read once, the output written
@@ -640,6 +645,46 @@ def check_rescore_local(tag, args, reps: int) -> dict:
                 instruction_floor_ms=ops / FP32_INSTR_PER_S * 1e3, live_samples=w_sum,
                 positions_computed=int(computed.sum()), R=R, T=T, L=L,
                 edge_positions_scored=int((computed & (kk < k)).sum()))
+
+
+def check_k9_tiles(seed: int, small: bool, reps: int) -> dict:
+    """The K = 9 instantiations of both rescore tile kernels, at the 9-mer
+    cell's shape: reads simulated under ``KmerModel.synthetic(9)`` at 12.5
+    samples a base, those that fit T = 22,016, band 256, t_w 192. The fill
+    and the walk on the card give the path and its counts; with the launch
+    counts zeroed just before, each tile kernel gives its plain version's
+    (R, L, 4) result to the bit. Returns the shape and the two kernels'
+    numbers."""
+    model = nt.KmerModel.synthetic(k=K9)
+    cfg = nt.AlignConfig(k=K9, band_width=256)
+    n_reads, bases, R = (12, 400, 8) if small else (64, 1690, 32)
+    rng = np.random.default_rng(seed + 9)
+    sample = random_genome(rng, length=40_000)
+    name = sample.contigs[0].name
+    reads = [simulate_read(sample, name, model, rng, read_len=bases,
+                           mean_dwell=K9_DWELL, read_id=f"k9_{i:03d}")
+             for i in range(n_reads)]
+    _, records = records_of(reads, sample, model, cfg)
+    records = [r for r in records if len(r.signal) <= 22016][:R]
+    assert len(records) == R, len(records)
+    tables = build_subst_tables(sample, model, device="cuda")
+    batch, a = staged_batch(records, model, cfg, subst=tables)
+    if not small:
+        assert batch.x.shape == (R, 22016), batch.x.shape
+    res, _ = cuda_dp.cuda_viterbi_batch(
+        a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"], a["delta"], cfg,
+        count_lanes=cuda_rescore.count_lanes(batch.mu.shape[1]))
+    sync()
+    reset_launches()
+    nums = check_rescore_kernels("k9", batch, a, res.path, res.counts, cfg, tables,
+                                 reps, exact=True)
+    launches = read_launches()
+    assert launches["rescore_local_tab"] > 0 and launches["rescore_local"] > 0, launches
+    assert launches["viterbi_fill"] == 0, launches
+    return {"R": R, "T": batch.x.shape[1], "B": cfg.band_width, "k": K9,
+            "L": batch.codes.shape[1], "t_w": cfg.snp_local_window,
+            "samples_a_base": K9_DWELL, "kernels": {
+                n: nums[n] for n in ("rescore_local_tab", "rescore_local")}}
 
 
 def check_span_mask(reps: int) -> dict:
@@ -1949,6 +1994,7 @@ def main() -> int:
     del res, a_sh, tables_sh
     check_argmax_tie()
     span = check_span_mask(reps=10)
+    k9_nums = check_k9_tiles(args.seed, small, reps=5)
     del a_w, a
     # the skip fill, the two-plane backtrack and the two-sample fill, on reads
     # simulated with pore skips, at the same two shapes
@@ -1973,6 +2019,7 @@ def main() -> int:
                                (batch_w, batch_sw, cfg_wide, wide_nums))],
         "short_rows": {"R": batch_sh.x.shape[0], "T": batch_sh.x.shape[1],
                        "L": batch_sh.codes.shape[1], "kernels": short_nums},
+        "k9": k9_nums,
         "walks_past_256_slots": walks})
     if not small:
         assert batch.x.shape == batch_s.x.shape == (256, 11136), batch.x.shape

@@ -56,7 +56,8 @@
 //             position, in shared memory), so that the masked ones come last;
 //   DP        four threads per position, one per candidate base (a thread
 //             holds 3 * K constants and K states; without tables it makes
-//             them from K ids and three per-k-mer vectors, all in L1): each warp takes groups of
+//             them from K ids and three per-k-mer vectors: 48 KB at K = 6, in
+//             L1; 3 MB at K = 9, in L2): each warp takes groups of
 //             8 positions of consecutive rank in snake order (warp w: groups
 //             w, 7 - w, 8 + w, 15 - w), so a warp's 8 windows are alike and
 //             the four warps' work is balanced; rescore_body on slab +
@@ -377,6 +378,7 @@ rescore_local_kernel(const float* __restrict__ x, const int* __restrict__ cnt,
         case 6: LAUNCH(6); break;                   \
         case 7: LAUNCH(7); break;                   \
         case 8: LAUNCH(8); break;                   \
+        case 9: LAUNCH(9); break;                   \
         default: return (int)cudaErrorInvalidValue; \
     }
 

@@ -48,7 +48,7 @@ from .subst_tables import SubstTables
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 LT = 128      # positions per tile of the slab rule
 SPAN = 2048   # samples a tile's window starts may spread over (slab rule)
-MAX_K = 8     # k-mer lengths csrc/rescore.cu is instantiated for
+MAX_K = 9     # k-mer lengths csrc/rescore.cu is instantiated for (1..9)
 MAX_TW = 256  # longest window the fused rescore's staged samples hold
 
 

@@ -30,13 +30,14 @@ of overlapping reads).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..genome import Genome, kmer_ids, reverse_complement
 from ..kmer_model import KmerModel
+from ..utils.metrics import PROCESS as METRICS
 
 NEG_INF = -1e30
 _HALF_LOG_2PI = 0.5 * float(np.log(2.0 * np.pi))
@@ -73,13 +74,28 @@ def _strand_tables(codes: np.ndarray, model: KmerModel):
 
 @dataclasses.dataclass
 class SubstTables:
-    """Device-resident substituted-level tables for one genome."""
+    """Device-resident substituted-level tables for one genome.
+
+    ``level_mean`` / ``level_std``: the model's (4^k,) float32 level vectors
+    on the same device, put there once with the tables, so that a batch
+    staged on the tables path uploads none (the tables rescore does not read
+    them; the ``scan`` twin and the no-tables kernel on the same staged
+    batch do). None where the tables came from elsewhere."""
 
     tab: torch.Tensor      # (3, k*4, rows_p) f32, stacked [em, mu, iv]
     valid: torch.Tensor    # (rows_p,) bool
     contig_offsets: Dict[str, int]   # contig -> column offset of its fwd block
     g_total: int           # Gp (columns per strand block)
     k: int
+    level_mean: Optional[torch.Tensor] = None
+    level_std: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "SubstTables":
+        """The same tables on ``device``."""
+        move = lambda t: None if t is None else t.to(device)
+        return dataclasses.replace(self, tab=move(self.tab), valid=move(self.valid),
+                                   level_mean=move(self.level_mean),
+                                   level_std=move(self.level_std))
 
     @property
     def rows_p(self) -> int:
@@ -117,7 +133,12 @@ class SubstTables:
 
 def build_subst_tables(genome: Genome, model: KmerModel, pad: int = 8192,
                        device="cuda") -> SubstTables:
-    """Host-side build + upload to ``device`` (call once per genome)."""
+    """Host-side build + upload to ``device`` (call once per genome), with
+    the model's level vectors beside the tables. The device bytes of each
+    build's table and validity are counted in
+    ``utils.metrics.PROCESS`` as ``subst_table_bytes``: 3 * 4k floats and a
+    validity byte a column, a column a base on each strand, so 578 bytes a
+    genome base at k = 6 and 866 at k = 9."""
     k = model.k
     gap = 16  # N separators so k-mers never span contig boundaries
     offsets, off = {}, 0
@@ -163,8 +184,11 @@ def build_subst_tables(genome: Genome, model: KmerModel, pad: int = 8192,
     valid_p = np.zeros(rows_p, bool)
     valid_p[:rows] = valid
     dev = torch.device(device)
+    METRICS.count("subst_table_bytes", tab.nbytes + valid_p.nbytes)
     return SubstTables(
         tab=torch.from_numpy(tab).to(dev),
         valid=torch.from_numpy(valid_p).to(dev),
         contig_offsets=offsets, g_total=Gp, k=k,
+        level_mean=torch.from_numpy(model.level_mean.astype(np.float32)).to(dev),
+        level_std=torch.from_numpy(model.level_std.astype(np.float32)).to(dev),
     )

@@ -103,9 +103,7 @@ def replicate_tables(mesh: Mesh, tables):
     device of the mesh (None stays None)."""
     if tables is None:
         return None
-    return {d: dataclasses.replace(tables, tab=tables.tab.to(d),
-                                   valid=tables.valid.to(d))
-            for d in dict.fromkeys(mesh.devices)}
+    return {d: tables.to(d) for d in dict.fromkeys(mesh.devices)}
 
 
 @dataclasses.dataclass

@@ -302,14 +302,18 @@ def check_supported(cfg: AlignConfig, backend: str = "auto", device=None) -> Non
     """Raise for a configuration the device path cannot run: before any
     kernel launches, so that nothing fails half way through a batch. On a
     CUDA device the kernel backend takes band widths up to
-    ``cuda_dp.MAX_BAND``."""
+    ``cuda_dp.MAX_BAND`` and, with the local rescore, k up to
+    ``cuda_rescore.MAX_K``."""
     if cfg.snp_rescore not in ("local", "fixed"):
         raise ValueError(f"unknown snp_rescore {cfg.snp_rescore!r}")
     if (device is not None and torch.device(device).type == "cuda"
-            and resolve_backend(cfg, backend) == "cuda"
-            and cfg.band_width > cuda_dp.MAX_BAND):
-        raise ValueError(f"band_width {cfg.band_width} exceeds {cuda_dp.MAX_BAND} "
-                         f"slots, the most the CUDA kernels take")
+            and resolve_backend(cfg, backend) == "cuda"):
+        if cfg.band_width > cuda_dp.MAX_BAND:
+            raise ValueError(f"band_width {cfg.band_width} exceeds {cuda_dp.MAX_BAND} "
+                             f"slots, the most the CUDA kernels take")
+        if cfg.snp_rescore == "local" and cfg.k > cuda_rescore.MAX_K:
+            raise ValueError(f"k={cfg.k} exceeds {cuda_rescore.MAX_K}, the longest "
+                             f"k-mer the CUDA rescore kernels are built for")
 
 
 def device_compute(
@@ -380,8 +384,10 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
     offsets are computed here (span ``nadavca.upload.offsets``) and checked
     against the table's tail pad. The copies are those of ``utils.upload``:
     asynchronous on a CUDA device, the caller's stream made to wait for them
-    on return; ``upload``, the :class:`~.utils.upload.Upload` this staging
-    joins (``parallel.sharded.shard_batch``'s), else one of its own.
+    on return; on the tables path the model's level vectors are the ones
+    the tables put on the device, and no batch uploads them. ``upload``, the
+    :class:`~.utils.upload.Upload` this staging joins
+    (``parallel.sharded.shard_batch``'s), else one of its own.
     """
     if upload is None:
         with Upload(device) as up:
@@ -393,7 +399,7 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
     staged = dict(x=put(batch.x), t_len=put(batch.t_len), mu=put(batch.mu),
                   sigma=put(batch.sigma), n_ref=put(batch.n_ref),
                   lo=put(batch.bands.lo), delta=put(batch.bands.delta))
-    woff = woff_range = None
+    woff = woff_range = lm = ls = None
     if subst is not None and backend == "cuda" and cfg.snp_rescore == "local":
         with span("nadavca.upload.offsets"):
             off = subst.window_offsets(
@@ -401,13 +407,15 @@ def stage_batch(batch: Batch, model: KmerModel, cfg: AlignConfig,
                 padded_len=batch.codes.shape[1])
             woff_range = (int(off.min()), int(off.max())) if len(off) else None
         woff = put(off)
+        lm, ls = subst.level_mean, subst.level_std
     else:
         subst = None
+    staged.update(codes=put(batch.codes), ids=put(batch.ids))
+    if lm is None:
+        lm = put(model.level_mean.astype(np.float32))
+        ls = put(model.level_std.astype(np.float32))
     staged.update(
-        codes=put(batch.codes), ids=put(batch.ids),
-        lm=put(model.level_mean.astype(np.float32)),
-        ls=put(model.level_std.astype(np.float32)),
-        woff=woff, woff_range=woff_range, subst=subst,
+        lm=lm, ls=ls, woff=woff, woff_range=woff_range, subst=subst,
         backend=backend, k=model.k,
     )
     return staged

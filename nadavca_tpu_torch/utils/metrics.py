@@ -6,8 +6,10 @@ entry point calls, is left out), with one registry for the process,
 :data:`PROCESS`: code below the command line counts into it (the bytes
 ``pipeline.stage_batch`` and ``parallel.sharded.shard_batch`` hand to the
 device, ``upload_bytes``, and of those the bytes copied without waiting,
-from page-locked memory, ``upload_async_bytes``: ``utils.upload``), and each
-CLI command resets it at its start and reports it at its end. A counter
+from page-locked memory, ``upload_async_bytes``: ``utils.upload``; the
+device bytes of the genome tables each ``ops.subst_tables.
+build_subst_tables`` makes, ``subst_table_bytes``), and each CLI command
+resets it at its start and reports it at its end. A counter
 reads host values only.
 """
 

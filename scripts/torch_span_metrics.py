@@ -13,7 +13,8 @@ traced run does not read yet: ``accumulate_ms_per_batch``,
 of the window's ``upload_bytes`` copied without waiting, from page-locked
 memory: ``upload_async_bytes`` over ``upload_bytes``), ``launches_per_batch``, the idle
 time by program span (``idle_gaps_program``), the device time by innermost
-program span and the step's device operations by name. Three checks:
+program span and the step's device operations by name; and the device bytes
+of the genome tables built in set-up (``subst_table_bytes``). Three checks:
 ``accumulate_ms_per_batch`` against ``scatter_ms_per_batch``; the HtoD time
 launched inside ``nadavca.upload`` against ``h2d_ms_per_batch`` times the
 batches; and, for every operation name, the time put down to a program span
@@ -114,7 +115,9 @@ def main(argv=None) -> int:
            "device": res["device"], "batches": n, "cycles": window["cycles"],
            "window_s": window["seconds"],
            "traced_reads_per_s": res["attempted"] / window["seconds"],
-           "window_upload_bytes": upload, "metrics": m, "new": new, "checks": checks,
+           "window_upload_bytes": upload,
+           "subst_table_bytes": kept["start"].get("subst_table_bytes"),
+           "metrics": m, "new": new, "checks": checks,
            "breakdown": res["breakdown"],
            "idle_gaps_program": pt.breakdown_program(tr, prog),
            "device_s_by_span": dict(by_span.most_common()),

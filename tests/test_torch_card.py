@@ -234,7 +234,7 @@ def _local_tab_inputs(dev, T, k, seed, R=8, L=256, rows_p=4096):
             put(codes), put(woff), put(tab), put(rng.random(rows_p) > 0.05), N)
 
 
-@pytest.mark.parametrize("k", [6, 3, 8])
+@pytest.mark.parametrize("k", [6, 3, 8, 9])
 def test_rescore_kernels_match_plain_versions(card, k):
     from nadavca_tpu_torch.ops import cuda_rescore
 

@@ -342,11 +342,11 @@ def test_local_cuda_with_tables_matches_pallas(world):
         np.testing.assert_allclose(got[r, interior], no_tab[r, interior], **TOL)
 
 
-def _mk(rng, model, lens, L):
+def _mk(rng, model, lens, L, dwell=8.0):
     """The fixture of tests/test_pallas_rescore.py."""
     genome = random_genome(rng, length=1500)
     reads = [simulate_read(genome, "ref", model, rng, read_len=ln, strand=1,
-                           mean_dwell=8.0) for ln in lens]
+                           mean_dwell=dwell) for ln in lens]
     R = len(reads)
     T = max(len(r.signal) for r in reads)
     N = L - model.k + 1
@@ -393,6 +393,28 @@ def test_local_cuda_without_tables_matches_pallas(case):
     twin = tbanded.base_loglik_local_batch(
         *_common(arrs, _t), model.k, AlignConfig(), t_w=t_w).numpy()
     np.testing.assert_allclose(got, twin, **TOL)
+
+
+def test_local_rescore_at_k9_matches_jax():
+    """The 9-mer model (R10.4.1's k) at 12.5 samples a base, windows of ~112
+    samples under t_w 192: the no-tables tile's plain version and the
+    port's ``scan`` twin against the JAX package's ``scan`` twin, on the
+    same inputs."""
+    model = default_model(9)
+    arrs, _ = _mk(np.random.default_rng(7), model, (150, 180, 165), 256, dwell=12.5)
+    assert arrs["x"].shape[1] > 1800
+    want = np.asarray(jbanded.base_loglik_local_batch(
+        *_common(arrs, jnp.asarray), 9, JaxConfig(k=9), t_w=192))
+    got = cuda_rescore.base_loglik_local_cuda(
+        *_common(arrs, _t), 9, AlignConfig(k=9), t_w=192).numpy()
+    twin = tbanded.base_loglik_local_batch(
+        *_common(arrs, _t), 9, AlignConfig(k=9), t_w=192).numpy()
+    assert got.shape == want.shape == (3, 256, 4)
+    assert int((want != 0).any(2).sum()) > 400
+    for port in (got, twin):
+        np.testing.assert_allclose(port, want, **TOL)
+        np.testing.assert_array_equal((port == 0).all(2), (want == 0).all(2))
+        np.testing.assert_array_equal(port.argmax(2), want.argmax(2))
 
 
 def test_span_mask_applies_from_T_2304_on():

@@ -121,8 +121,11 @@ def test_upload_bytes_are_the_staged_arrays(world):
     blocks = sharded.shard_batch(mesh, batch, model, CFG, "auto", tables)
     want = 0
     for b in blocks:
-        want += sum(v.numel() * v.element_size() for v in b.staged.values()
-                    if isinstance(v, torch.Tensor))
+        # the level vectors came with the tables: no batch uploads them
+        assert b.staged["lm"] is tables[b.device].level_mean
+        assert b.staged["ls"] is tables[b.device].level_std
+        want += sum(v.numel() * v.element_size() for name, v in b.staged.items()
+                    if isinstance(v, torch.Tensor) and name not in ("lm", "ls"))
         want += sum(v.numel() * v.element_size() for v in (b.wstart, b.wlen, b.strand))
     assert want > batch.x.nbytes
     assert reg.counters["upload_bytes"] - before == want

@@ -20,8 +20,7 @@ from nadavca_tpu_torch import convert
 from nadavca_tpu_torch.ops import subst_tables as ttables
 
 
-@pytest.fixture(scope="module")
-def both():
+def _build_both(k):
     rng = np.random.default_rng(11)
     a = "".join("ACGT"[c] for c in rng.integers(0, 4, 700))
     b = "".join("ACGT"[c] for c in rng.integers(0, 4, 400))
@@ -29,9 +28,14 @@ def both():
     seqs = {"chrA": a, "chrB": b}
     jg = nadavca_tpu.Genome.from_dict(seqs)
     tg = nadavca_tpu_torch.Genome.from_dict(seqs)
-    jm, tm = nadavca_tpu.default_model(), nadavca_tpu_torch.default_model()
+    jm, tm = nadavca_tpu.default_model(k), nadavca_tpu_torch.default_model(k)
     return (jtables.build_subst_tables(jg, jm, pad=1024),
             ttables.build_subst_tables(tg, tm, pad=1024, device="cpu"), tg)
+
+
+@pytest.fixture(scope="module")
+def both():
+    return _build_both(6)
 
 
 def test_tables_equal_bit_for_bit(both):
@@ -50,6 +54,20 @@ def test_tables_equal_bit_for_bit(both):
     t = tt.tab.numpy()
     assert (t[0, :, rows:] == -1e30).all() and (t[1, :, rows:] == 0).all()
     assert (t[2, :, rows:] == 1).all() and not va[rows:].any()
+
+
+def test_tables_equal_bit_for_bit_at_k9():
+    """The 9-mer model (R10.4.1's k): 36 rows a column, the same numbers."""
+    jt, tt, _ = _build_both(9)
+    tab4 = np.asarray(jt.tab4)
+    assert tt.tab.shape == (3, 36, tab4.shape[2] * 128) and jt.k == tt.k == 9
+    np.testing.assert_array_equal(tt.tab.numpy(), tab4.reshape(3, 36, -1))
+    np.testing.assert_array_equal(tt.valid.numpy(), np.asarray(jt.valid))
+    assert (tt.contig_offsets, tt.g_total) == (jt.contig_offsets, jt.g_total)
+    # the model's level vectors come with the tables
+    m = nadavca_tpu_torch.default_model(9)
+    assert torch.equal(tt.level_mean, torch.from_numpy(m.level_mean))
+    assert torch.equal(tt.level_std, torch.from_numpy(m.level_std))
 
 
 def test_handed_over_tables_are_the_same_object_state(both):

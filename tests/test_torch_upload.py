@@ -113,12 +113,14 @@ def _assert_staged(staged, blk, model, subst, dev):
     want = {f: getattr(blk, f) for f in ("x", "t_len", "mu", "sigma", "n_ref",
                                          "codes", "ids")}
     want.update(lo=blk.bands.lo, delta=blk.bands.delta,
-                lm=model.level_mean.astype(np.float32),
-                ls=model.level_std.astype(np.float32),
                 woff=subst.window_offsets(blk.contigs, blk.window_start,
                                           blk.window_len, blk.strand,
                                           padded_len=blk.codes.shape[1]))
-    for name, a in want.items():
+    # the level vectors came with the tables: no batch uploads them
+    kept = dict(lm=model.level_mean.astype(np.float32),
+                ls=model.level_std.astype(np.float32))
+    assert staged["lm"] is subst.level_mean and staged["ls"] is subst.level_std
+    for name, a in {**want, **kept}.items():
         got, ref = staged[name], _blocking(a, dev)
         assert got.device == ref.device and got.dtype == ref.dtype, name
         assert torch.equal(got, ref), name

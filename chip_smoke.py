@@ -10,8 +10,9 @@ against its plain PyTorch version on the card (at the main and the wide
 shape; the walk also at 384 and 1024 slots, the two-sample fill at 384, the
 two rescore tile kernels also on rows shorter than 2304 samples, on rows
 of 2561, and at k = 9, the R10.4.1 pore's 9-mer model, at T 22,016 and band
-256 with 12.5 samples a base), drives the port's main path — the default
-configuration: reads → banded Viterbi (the fill gathering its own band
+256 with 12.5 samples a base; the port-only scatter kernel at the bench
+cells' widest batch on the E. coli genome), drives the port's main path —
+the default configuration: reads → banded Viterbi (the fill gathering its own band
 levels) → the local re-DP rescore with genome tables in one kernel → SNP
 calls — through the public ``api`` at a realistic batch size, checks the
 result, and prints one JSON line per phase. Then ``band_width=384`` through
@@ -77,7 +78,7 @@ from nadavca_tpu_torch import api, call as callmod, cli, joint, pipeline, prep_n
 from nadavca_tpu_torch.genome import Contig, Genome
 from nadavca_tpu_torch.io import fast5 as fast5mod
 from nadavca_tpu_torch.io.simulator import random_genome, simulate_read
-from nadavca_tpu_torch.ops import banded_dp, cuda_dp, cuda_rescore
+from nadavca_tpu_torch.ops import banded_dp, cuda_dp, cuda_rescore, cuda_scatter
 from nadavca_tpu_torch.ops.subst_tables import build_subst_tables
 from nadavca_tpu_torch.parallel import sharded
 from nadavca_tpu_torch.utils import kernel_build, parity
@@ -151,11 +152,15 @@ SKIP_FIELDS = dict(use_skip=True, log_p_skip=-4.6)
 SKIP_PROB = 0.08
 # the 9-mer model's k, and its signal's samples a base (5 kHz at 400 bases/s)
 K9, K9_DWELL = 9, 12.5
+# the scatter's check: the bench cells' widest batch on the E. coli genome
+# (genome rows, reads, window positions)
+SCATTER_SHAPE = (4_641_652, 256, 26_000)
 
 
 def reset_launches() -> None:
     cuda_dp.reset_launches()
     cuda_rescore.reset_launches()
+    cuda_scatter.reset_launches()
 
 
 def read_launches() -> dict:
@@ -685,6 +690,49 @@ def check_k9_tiles(seed: int, small: bool, reps: int) -> dict:
             "L": batch.codes.shape[1], "t_w": cfg.snp_local_window,
             "samples_a_base": K9_DWELL, "kernels": {
                 n: nums[n] for n in ("rescore_local_tab", "rescore_local")}}
+
+
+def check_scatter(seed: int, small: bool, reps: int) -> dict:
+    """The scatter kernel (``cuda_scatter.index_add_windows``, no TPU
+    counterpart) against its plain version, ``scatter_values`` and three
+    ``index_add_``, at the bench cells' widest batch on the E. coli genome:
+    both strands, half the reads piled on the first 50 kb, windows over both
+    genome ends, random window lengths. From the same accumulators, cov and
+    votes equal and acc within 1e-6 of its largest magnitude (atomic float
+    sums on both sides). Returns ms of each by CUDA events, and the bound."""
+    G, R, L = (100_003, 32, 2_000) if small else SCATTER_SHAPE
+    rng = np.random.default_rng(seed + 18)
+    put = lambda a: torch.from_numpy(a).to("cuda")
+    base_ll = put(rng.normal(0, 8, size=(R, L, 4)).astype(np.float32))
+    ws = rng.integers(0, G, size=R)
+    ws[::2] = rng.integers(0, 50_000, size=len(ws[::2]))
+    ws[:4] = (-300, G - 500, -20_000, G - 10)
+    ws, wl = put(ws.astype(np.int64)), put(rng.integers(0, L + 1, size=R).astype(np.int32))
+    st = put(np.where(rng.random(R) < 0.5, 1, -1).astype(np.int32))
+    cfg = nt.AlignConfig()
+    fresh = lambda: callmod.make_accumulators(G, with_votes=True, device="cuda")
+    got, want = fresh(), fresh()
+    before = cuda_scatter.index_add_windows.launches
+    cuda_scatter.index_add_windows(*got, base_ll, ws, wl, st, cfg)
+    sync()
+    assert cuda_scatter.index_add_windows.launches == before + 1
+    cuda_scatter.index_add_windows_plain(*want, base_ll, ws, wl, st, cfg)
+    sync()
+    assert torch.equal(got[1], want[1]), "scatter: cov differs"
+    assert torch.equal(got[2], want[2]), "scatter: votes differ"
+    err = float((got[0] - want[0]).abs().max())
+    assert err <= 1e-6 * float(want[0].abs().max()), f"scatter: acc differs by {err}"
+    n_valid, n_votes = int(want[1].sum()), int(want[2].sum())
+    acc = fresh()
+    kern = lambda: cuda_scatter.index_add_windows(*acc, base_ll, ws, wl, st, cfg)
+    plain = lambda: cuda_scatter.index_add_windows_plain(*acc, base_ll, ws, wl, st, cfg)
+    # what these inputs need: a valid position's 16 B of the batch read once
+    # (an invalid one is never loaded), its acc row and cov entry read and
+    # written, a vote's votes entry; the three per-read vectors
+    nbytes = n_valid * (16 + 32 + 8) + n_votes * 8 + R * 16
+    return dict(G=G, R=R, L=L, valid_positions=n_valid, votes=n_votes, max_abs_err=err,
+                ms=event_ms(kern, reps), device_ms=device_ms(kern, reps),
+                plain_ms=event_ms(plain, max(1, reps // 5)), **bound(nbytes, 0))
 
 
 def check_span_mask(reps: int) -> dict:
@@ -1995,6 +2043,7 @@ def main() -> int:
     check_argmax_tie()
     span = check_span_mask(reps=10)
     k9_nums = check_k9_tiles(args.seed, small, reps=5)
+    scatter_nums = check_scatter(args.seed, small, reps=20)
     del a_w, a
     # the skip fill, the two-plane backtrack and the two-sample fill, on reads
     # simulated with pore skips, at the same two shapes
@@ -2020,6 +2069,7 @@ def main() -> int:
         "short_rows": {"R": batch_sh.x.shape[0], "T": batch_sh.x.shape[1],
                        "L": batch_sh.codes.shape[1], "kernels": short_nums},
         "k9": k9_nums,
+        "scatter": scatter_nums,
         "walks_past_256_slots": walks})
     if not small:
         assert batch.x.shape == batch_s.x.shape == (256, 11136), batch.x.shape
@@ -2041,6 +2091,9 @@ def main() -> int:
                                             "cuda", batch_reads)
         launches = read_launches()
         expect_launches("local", launches, {k: 2 * n_batches for k in LOCAL_KERNELS})
+        # call_snps scatters each batch of the one contig in one launch
+        assert cuda_scatter.index_add_windows.launches == n_batches, (
+            cuda_scatter.index_add_windows.launches, n_batches)
         assert len(alns) >= 0.9 * len(reads), (len(alns), len(reads))
 
     # the result is right: (a) the same entry points on the CPU, where every
@@ -2050,11 +2103,12 @@ def main() -> int:
     sub = raws[:batch_reads]
     t0 = time.perf_counter()
     card_sub = run_api(reference, sub, None, cfg, model, "cuda", batch_reads)[:2]
-    seen = read_launches()
+    seen = read_launches(), cuda_scatter.index_add_windows.launches
     assert_agree("local", card_sub,
                  run_api(reference, sub, None, cfg, model, "cpu", batch_reads)[:2],
                  RESCORE_RTOL, RESCORE_ATOL)
-    assert read_launches() == seen, "a CPU run must not launch a kernel"
+    assert (read_launches(), cuda_scatter.index_add_windows.launches) == seen, \
+        "a CPU run must not launch a kernel"
     # align_signal without probabilities runs no rescore: one walk per batch,
     # without counts, and the same segments
     reset_launches()

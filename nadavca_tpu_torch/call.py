@@ -4,9 +4,11 @@ Counterpart of ``nadavca_tpu/call.py``: per-read per-position base
 log-likelihoods are summed across reads covering each locus, converted to
 posteriors under a uniform prior, thresholded, and reported.
 
-The aggregation is a scatter-add (``index_add_``) of (R, L, 4) read windows
-into a (G, 4) genome accumulator. Reverse-strand reads are handled by flipping
-the window coordinates and complementing the base axis before the scatter.
+The aggregation is a scatter-add of (R, L, 4) read windows into a (G, 4)
+genome accumulator (``ops/cuda_scatter``: one kernel on the card, its plain
+version ``scatter_values`` and ``index_add_`` on the CPU). Reverse-strand
+reads are handled by flipping the window coordinates and complementing the
+base axis before the scatter.
 """
 
 from __future__ import annotations
@@ -19,58 +21,8 @@ import numpy as np
 import torch
 
 from .config import AlignConfig
+from .ops.cuda_scatter import index_add_windows, scatter_values  # noqa: F401
 from .utils.profiling import span
-
-
-def scatter_values(
-    base_ll: torch.Tensor,      # (R, L, 4) float32 per-read window log-likelihoods
-    window_start: torch.Tensor, # (R,) int genome coord of window base 0 (fwd strand)
-    window_len: torch.Tensor,   # (R,) int true window lengths
-    strand: torch.Tensor,       # (R,) int +1 / -1
-    G: int,
-    cfg: AlignConfig,
-):
-    """The single source of truth for the locus scatter semantics.
-
-    Per-read contributions are clipped to ±cfg.snp_ll_clip so a single
-    misanchored read cannot dominate a locus, and each read casts at most one
-    "vote" per position for a base whose margin over the runner-up exceeds
-    cfg.snp_vote_margin (consumed by call_snps' min-alt-votes filter).
-
-    Returns (flat_pos (R·L,) int64 with G as the overflow row, ll (R·L, 4)
-    clipped+masked values, n_valid (R·L,) int32, votes_onehot (R·L, 4) int32).
-    """
-    R, L, _ = base_ll.shape
-    dev = base_ll.device
-    window_start = window_start.to(torch.int64)
-    window_len = window_len.to(torch.int64)
-    li = torch.arange(L, dtype=torch.int64, device=dev)[None, :]   # (1, L)
-    rev = strand[:, None] < 0                                       # (R, 1)
-    # genome position of window base i
-    pos_fwd = window_start[:, None] + li
-    pos_rev = window_start[:, None] + (window_len[:, None] - 1 - li)
-    pos = torch.where(rev, pos_rev, pos_fwd)                        # (R, L)
-    valid = (li < window_len[:, None]) & (pos >= 0) & (pos < G)
-    pos_safe = torch.where(valid, pos, torch.full_like(pos, G))     # overflow row
-
-    # complement base axis for reverse reads: A C G T -> T G C A, the axis
-    # reversed (made on the device: a tensor of indices from the host would be
-    # a blocking copy in the middle of the step)
-    ll_rev = base_ll.flip(2)
-    ll_raw = torch.where(rev[:, :, None], ll_rev, base_ll)
-    ll = ll_raw.clamp(-cfg.snp_ll_clip, cfg.snp_ll_clip)
-    ll = torch.where(valid[:, :, None], ll, torch.zeros_like(ll))
-
-    # per-read confident votes (on UNclipped deltas): best base beats the
-    # runner-up by the margin. argmax returns the first maximum; ref col is 0
-    best = torch.argmax(ll_raw, dim=2)                              # (R, L)
-    best_v = ll_raw.max(dim=2).values
-    second = torch.sort(ll_raw, dim=2).values[:, :, 2]
-    confident = (best_v - second >= cfg.snp_vote_margin) & valid
-    onehot = torch.nn.functional.one_hot(best, 4).to(torch.int32) \
-        * confident[..., None].to(torch.int32)
-    return (pos_safe.reshape(-1), ll.reshape(-1, 4),
-            valid.reshape(-1).to(torch.int32), onehot.reshape(-1, 4))
 
 
 def accumulate_batch(
@@ -85,31 +37,24 @@ def accumulate_batch(
 ):
     """Scatter-add one batch of read windows into the genome accumulators.
 
-    Returns new tensors (the arguments are left as they were). Out-of-window
-    and out-of-genome positions land in an overflow row that is cut off again.
-    On a CUDA device ``index_add_`` adds with atomics, so the float sums in
-    ``acc`` can differ in their last bits from run to run; ``cov`` and
-    ``votes`` are integer sums and exact. Span ``nadavca.accumulate``.
+    Returns new tensors (the arguments are left as they were): a copy of each
+    accumulator, added to by :func:`accumulate_batch_`. Out-of-window and
+    out-of-genome positions add nothing. On a CUDA device the adds are
+    atomic, so the float sums in ``acc`` can differ in their last bits from
+    run to run; ``cov`` and ``votes`` are integer sums and exact. Span
+    ``nadavca.accumulate``.
     """
-    G = acc.shape[0]
     with span("nadavca.accumulate"):
-        flat_pos, ll, n_valid, onehot = scatter_values(
-            base_ll, window_start, window_len, strand, G, cfg)
-        acc_pad = torch.cat([acc, acc.new_zeros((1, 4))], dim=0)
-        acc_pad.index_add_(0, flat_pos, ll.to(acc.dtype))
-        cov_pad = torch.cat([cov, cov.new_zeros((1,))], dim=0)
-        cov_pad.index_add_(0, flat_pos, n_valid.to(cov.dtype))
-        if votes is None:
-            return acc_pad[:G], cov_pad[:G]
-        votes_pad = torch.cat([votes, votes.new_zeros((1, 4))], dim=0)
-        votes_pad.index_add_(0, flat_pos, onehot.to(votes.dtype))
-        return acc_pad[:G], cov_pad[:G], votes_pad[:G]
+        acc, cov, votes = (None if t is None else t.clone(memory_format=torch.contiguous_format)
+                           for t in (acc, cov, votes))
+        accumulate_batch_(acc, cov, votes, base_ll, window_start, window_len, strand, cfg)
+    return (acc, cov) if votes is None else (acc, cov, votes)
 
 
 def accumulate_batch_(
     acc: torch.Tensor,          # (G, 4) float32, added to in place
     cov: torch.Tensor,          # (G,) int32, added to in place
-    votes: torch.Tensor,        # (G, 4) int32, added to in place
+    votes: Optional[torch.Tensor],  # (G, 4) int32, added to in place, or None
     base_ll: torch.Tensor,
     window_start: torch.Tensor,
     window_len: torch.Tensor,
@@ -117,16 +62,11 @@ def accumulate_batch_(
     cfg: AlignConfig = AlignConfig(),
 ) -> None:
     """:func:`accumulate_batch` into the given accumulators, in place, with no
-    G-sized temporary. The overflow row's entries are zeros (``scatter_values``
-    masks them), so they are added to row 0, which leaves it as it was."""
-    G = acc.shape[0]
+    G-sized temporary: ``ops/cuda_scatter.index_add_windows``, one kernel on
+    a CUDA device, its plain version (``scatter_values`` and three
+    ``index_add_``) on the CPU."""
     with span("nadavca.accumulate"):
-        flat_pos, ll, n_valid, onehot = scatter_values(
-            base_ll, window_start, window_len, strand, G, cfg)
-        flat_pos = torch.where(flat_pos < G, flat_pos, torch.zeros_like(flat_pos))
-        acc.index_add_(0, flat_pos, ll.to(acc.dtype))
-        cov.index_add_(0, flat_pos, n_valid.to(cov.dtype))
-        votes.index_add_(0, flat_pos, onehot.to(votes.dtype))
+        index_add_windows(acc, cov, votes, base_ll, window_start, window_len, strand, cfg)
 
 
 def make_accumulators(genome_len: int, with_votes: bool = False, device="cuda"):

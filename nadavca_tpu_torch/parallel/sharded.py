@@ -6,8 +6,8 @@ are split into contiguous blocks, one per mesh position (``P(data)``); each
 block is staged on its device (the model and genome tables replicated, one
 copy per distinct device) and runs the port's own ``pipeline.align_batch``
 there, so a shard launches exactly the kernels of the one-device path. Each
-block then scatters through ``call.scatter_values``, shared with
-``accumulate_batch``.
+block then scatters through ``call.accumulate_batch`` or, in place,
+``accumulate_batch_`` (one kernel on the card, ``ops/cuda_scatter``).
 
 Under a process group (``parallel/distributed.py``) each rank holds n
 consecutive positions of the mesh (process-major, as the JAX package's
@@ -23,7 +23,7 @@ per local position:
   the summed contribution (``psum_scatter``), so no position holds the whole
   genome.
 * deferred merge: every position carries a full-genome partial that grows in
-  place (``index_add_``, no G-sized temporary per batch); no collective runs
+  place (``accumulate_batch_``, no G-sized temporary per batch); no collective runs
   per batch. :func:`make_merge_fn` sums the partials into either layout
   above, without touching them, at checkpoints and before calling.
 

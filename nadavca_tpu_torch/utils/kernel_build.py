@@ -3,8 +3,9 @@
 Twin in role of ``nadavca_tpu/utils/native_build.py``. The sources have a
 plain C interface and include nothing of PyTorch, so ``nvcc`` compiles each in
 seconds (the walk's, with its 64 instantiations for bands up to 1024 slots, in
-about a minute). There are three: the fills (``viterbi_fill.cu``), the walk
-(``backtrack.cu``) and the local rescore (``rescore.cu``); each is compiled
+about a minute). There are four: the fills (``viterbi_fill.cu``), the walk
+(``backtrack.cu``), the local rescore (``rescore.cu``) and the locus scatter
+(``scatter.cu``); each is compiled
 to an object by its own ``nvcc`` process, all started together, and one link
 step makes ``libnadavca_kernels.so``, which is loaded with ``ctypes``. The
 output lives in ``nadavca_tpu_torch/_build/<hash>/`` keyed by a hash of the
@@ -154,6 +155,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nadavca_rescore_local.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, i, i, f, f, p]
     lib.nadavca_rescore_local.restype = i
+    lib.nadavca_index_add_windows.argtypes = [p, p, p, p, i, i, i, p, p, p,
+                                              i, i, ctypes.c_longlong, f, f, p]
+    lib.nadavca_index_add_windows.restype = i
     lib.nadavca_error_string.argtypes = [i]
     lib.nadavca_error_string.restype = ctypes.c_char_p
 

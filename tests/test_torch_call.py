@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -12,6 +13,9 @@ from nadavca_tpu.config import AlignConfig as JaxConfig
 from nadavca_tpu_torch import call as tcall
 from nadavca_tpu_torch import convert
 from nadavca_tpu_torch.config import AlignConfig
+from nadavca_tpu_torch.ops import cuda_scatter
+
+import torch_scatter_cases as SC
 
 G, R, L = 300, 6, 64
 
@@ -118,3 +122,67 @@ def test_call_snps_on_handed_over_accumulators(tmp_path):
     jcall.write_alignment(pj, "r", "ref", -1, 5, 8, s, e)
     tcall.write_alignment(pt, "r", "ref", -1, 5, 8, s, e)
     assert open(pj).read() == open(pt).read()
+
+
+# ----------------------------------------------- the scatter kernel's wrapper
+@pytest.mark.parametrize("case", SC.CASES)
+def test_index_add_windows_on_the_cpu(case):
+    """On CPU tensors the wrapper runs its plain version: the NumPy statement
+    of the scatter (cov and votes exact, acc to float32 rounding), the body
+    the port had before the kernel to the bit, and no launch."""
+    base_ll, ws, wl, st, g, with_votes = SC.make_case(case)
+    acc0, cov0, votes0 = SC.start_accumulators(g)
+    if not with_votes:
+        votes0 = None
+    t = lambda a: None if a is None else torch.from_numpy(a.copy())
+    acc, cov, votes = t(acc0), t(cov0), t(votes0)
+    args = (torch.from_numpy(base_ll), torch.from_numpy(ws), torch.from_numpy(wl),
+            torch.from_numpy(st))
+    before = cuda_scatter.index_add_windows.launches
+    cuda_scatter.index_add_windows(acc, cov, votes, *args, AlignConfig())
+    assert cuda_scatter.index_add_windows.launches == before, "no kernel on the CPU"
+    w_acc, w_cov, w_votes = SC.numpy_scatter(acc0, cov0, votes0, base_ll, ws, wl, st)
+    np.testing.assert_array_equal(cov.numpy(), w_cov)
+    assert (votes is None) == (w_votes is None)
+    if votes is not None:
+        np.testing.assert_array_equal(votes.numpy(), w_votes)
+    np.testing.assert_allclose(acc.numpy(), w_acc, rtol=0,
+                               atol=1e-6 * np.nanmax(np.abs(w_acc)), equal_nan=True)
+    old = SC.padded_scatter(t(acc0), t(cov0), t(votes0), *args)
+    for got, want in zip((acc, cov, votes), old):
+        assert (got is None and want is None) or torch.equal(got.nan_to_num(), want.nan_to_num())
+    if case == "nan_rows":
+        assert np.isnan(w_acc).any()
+
+
+def _scatter_args(**swap):
+    base_ll, ws, wl, st, g, _ = SC.make_case("forward")
+    acc, cov, votes = (torch.from_numpy(a) for a in SC.start_accumulators(g))
+    args = dict(acc=acc, cov=cov, votes=votes, base_ll=torch.from_numpy(base_ll),
+                window_start=torch.from_numpy(ws), window_len=torch.from_numpy(wl),
+                strand=torch.from_numpy(st))
+    return {**args, **{k: f(args[k]) for k, f in swap.items()}}
+
+
+@pytest.mark.parametrize("swap, err", [
+    (dict(acc=lambda a: a.double()), TypeError),
+    (dict(cov=lambda a: a.long()), TypeError),
+    (dict(votes=lambda a: a[:, :3].contiguous()), ValueError),
+    (dict(base_ll=lambda a: a.half()), TypeError),
+    (dict(base_ll=lambda a: a[:, :, :3]), ValueError),
+    (dict(window_len=lambda a: a.float()), TypeError),
+    (dict(strand=lambda a: a[:-1]), ValueError),
+    (dict(acc=lambda a: a.t().contiguous().t()), ValueError),
+    (dict(base_ll=lambda a: a.to("meta")), ValueError),
+], ids=["acc_f64", "cov_i64", "votes_shape", "ll_f16", "ll_shape", "wlen_float",
+        "strand_rows", "acc_strided", "ll_device"])
+def test_index_add_windows_rejects_bad_arguments(swap, err):
+    """A wrong dtype, shape, layout or device raises before anything is added
+    or launched."""
+    args = _scatter_args(**swap)
+    acc_before = args["acc"].clone()
+    before = cuda_scatter.index_add_windows.launches
+    with pytest.raises(err):
+        cuda_scatter.index_add_windows(**args, cfg=AlignConfig())
+    assert cuda_scatter.index_add_windows.launches == before
+    assert torch.equal(args["acc"], acc_before)

@@ -17,6 +17,8 @@ torch.set_num_threads(1)
 from nadavca_tpu_torch.config import AlignConfig
 from nadavca_tpu_torch.ops import cuda_dp
 
+import torch_scatter_cases as SC
+
 pytestmark = pytest.mark.cuda
 
 
@@ -310,14 +312,20 @@ def test_local_windows_on_the_card_needs_the_walks_counts(card):
 
 def test_a_cpu_run_launches_no_kernel(card):
     from nadavca_tpu_torch.ops import cuda_rescore
+    from nadavca_tpu_torch.ops import cuda_scatter
 
     cpu = torch.device("cpu")
-    before = [kern.launches for kern in cuda_dp.COUNTERS + cuda_rescore.KERNELS]
+    kernels = cuda_dp.COUNTERS + cuda_rescore.KERNELS + cuda_scatter.KERNELS
+    before = [kern.launches for kern in kernels]
     a = _local_tab_inputs(cpu, 2600, 6, 0)
     cuda_rescore.rescore_local_tab(*a, AlignConfig(), 32)
     cuda_rescore.rescore_local(*a[:5], *_kmer_inputs(a[4], 6, a[-1], 0), AlignConfig(),
                                32)
-    assert [kern.launches for kern in cuda_dp.COUNTERS + cuda_rescore.KERNELS] == before
+    base_ll, ws, wl, st, g, _ = SC.make_case("forward")
+    acc, cov, votes = (torch.from_numpy(x) for x in SC.start_accumulators(g))
+    cuda_scatter.index_add_windows(acc, cov, votes, *(torch.from_numpy(x) for x in (
+        base_ll, ws, wl, st)), AlignConfig())
+    assert [kern.launches for kern in kernels] == before
 
 
 def test_call_snps_at_band_width_384(card):
@@ -857,3 +865,64 @@ def test_the_upload_runs_under_the_previous_step(card):
     assert h2d and kernels
     assert not [n for n, _, _ in h2d if "Pageable" in n], {n for n, _, _ in h2d}
     assert any(a < kb and ka < b for _, a, b in h2d for _, ka, kb in kernels)
+
+
+# ------------------------------------------------------------ the scatter
+@pytest.mark.parametrize("case", SC.CASES + ("wide",))
+def test_index_add_windows_matches_plain_version(card, case):
+    """The scatter kernel against its plain version (``scatter_values`` and
+    three ``index_add_``) on the card, from the same accumulators: cov and
+    votes equal, acc within 1e-6 of its largest magnitude (both add with
+    atomics, in an order that changes from run to run); one launch."""
+    from nadavca_tpu_torch.ops import cuda_scatter
+
+    base_ll, ws, wl, st, g, with_votes = SC.make_case(case)
+    start = SC.start_accumulators(g)
+    put = lambda a: torch.from_numpy(np.array(a)).to(card)     # a copy on any device
+    args = [put(a) for a in (base_ll, ws, wl, st)]
+    outs = []
+    for fn in (cuda_scatter.index_add_windows, cuda_scatter.index_add_windows_plain):
+        acc, cov, votes = (put(a) for a in start)
+        votes = votes if with_votes else None
+        before = cuda_scatter.index_add_windows.launches
+        fn(acc, cov, votes, *args, AlignConfig())
+        torch.cuda.synchronize()
+        launched = cuda_scatter.index_add_windows.launches - before
+        assert launched == (fn is cuda_scatter.index_add_windows), launched
+        outs.append((acc, cov, votes))
+    (acc, cov, votes), (p_acc, p_cov, p_votes) = outs
+    assert torch.equal(cov, p_cov)
+    assert (votes is None) == (not with_votes)
+    if with_votes:
+        assert torch.equal(votes, p_votes)
+        assert int((votes - put(start[2])).sum()) > 0, "no read voted"
+    scale = float(p_acc.nan_to_num().abs().max())
+    torch.testing.assert_close(acc, p_acc, rtol=0, atol=1e-6 * scale, equal_nan=True)
+    assert torch.equal(acc.isnan(), p_acc.isnan())
+
+
+def test_accumulate_batch_leaves_its_arguments_on_the_card(card):
+    """The returning ``accumulate_batch`` on the card: its arguments are left
+    as they were, and it gives what ``accumulate_batch_`` adds in place;
+    rows picked with ``[rows]`` and a strided window tensor are taken too."""
+    from nadavca_tpu_torch import call as tcall
+
+    base_ll, ws, wl, st, g, _ = SC.make_case("crossing_ends")
+    put = lambda a: torch.from_numpy(np.array(a)).to(card)     # a copy on any device
+    acc0, cov0, votes0 = (put(a) for a in SC.start_accumulators(g))
+    order = np.array([4, 0, 2, 1, 3, 5, 6, 7])
+    rows = put(order)
+    ll = put(np.repeat(base_ll[order], 2, axis=1))[:, ::2]   # strided, the rows' values
+    assert not ll.is_contiguous()
+    args = (ll, put(ws)[rows], put(wl)[rows], put(st)[rows])
+    keep = [t.clone() for t in (acc0, cov0, votes0)]
+    acc, cov, votes = tcall.accumulate_batch(acc0, cov0, *args, votes=votes0,
+                                             cfg=AlignConfig())
+    for t, k in zip((acc0, cov0, votes0), keep):
+        assert torch.equal(t, k)
+    tcall.accumulate_batch_(acc0, cov0, votes0, *args, cfg=AlignConfig())
+    assert torch.equal(cov, cov0) and torch.equal(votes, votes0)
+    torch.testing.assert_close(acc, acc0, rtol=0, atol=1e-6 * float(acc0.abs().max()))
+    assert int((cov - keep[1]).sum()) > 0
+    two = tcall.accumulate_batch(keep[0], keep[1], *args, cfg=AlignConfig())
+    assert len(two) == 2 and torch.equal(two[1], cov)

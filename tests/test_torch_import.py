@@ -90,12 +90,13 @@ def test_every_kernel_source_has_a_declared_entry_point():
     declared = set(re.findall(r"lib\.(nadavca_\w+)\.argtypes",
                               open(kernel_build.__file__).read()))
     # seven launchers (the path counts run inside the walk's, the band and
-    # shear gathers inside the fills and the rescores) and the error string,
-    # plus the fills' three explicit-layout launchers and their layout table
-    assert exported == declared and len(exported) == 12, (exported ^ declared)
+    # shear gathers inside the fills and the rescores), the port-only
+    # scatter's and the error string, plus the fills' three explicit-layout
+    # launchers and their layout table
+    assert exported == declared and len(exported) == 13, (exported ^ declared)
     names = {os.path.basename(s) for s in kernel_build.sources()}
     # the folded kernels are no sources of their own
-    assert names == {"backtrack.cu", "rescore.cu", "viterbi_fill.cu"}, names
+    assert names == {"backtrack.cu", "rescore.cu", "scatter.cu", "viterbi_fill.cu"}, names
 
 
 def test_default_model_and_config_match_the_jax_package():

@@ -188,13 +188,13 @@ def test_native_prep_in_threads_gives_the_sequential_records(world):
 
 def test_prep_source_is_the_jax_packages_and_no_kernel_source():
     """``prep.cpp`` is a copy of the JAX package's, built by g++: it is none
-    of the three ``.cu`` sources nvcc compiles, and the kernels' build hash
+    of the four ``.cu`` sources nvcc compiles, and the kernels' build hash
     does not read it."""
     ours = os.path.join(native_build.CSRC_DIR, "prep.cpp")
     with open(ours, "rb") as a, open(os.path.join(REPO, "csrc", "prep.cpp"), "rb") as b:
         assert a.read() == b.read()
     names = {os.path.basename(s) for s in kernel_build.sources()}
-    assert names == {"backtrack.cu", "rescore.cu", "viterbi_fill.cu"}, names
+    assert names == {"backtrack.cu", "rescore.cu", "scatter.cu", "viterbi_fill.cu"}, names
     assert os.path.exists(prep_native.get_lib()._name)
     assert os.path.dirname(prep_native.get_lib()._name) == native_build.BUILD_ROOT
 
